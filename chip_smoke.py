@@ -19,10 +19,13 @@ Phases (any failure raises and the exit code is not 0):
    with a content checksum), and through ``ring_decode(..., ntot=...)`` as
    an on-device consumer. Each path runs with the launch counters set to 0
    just before it and read just after: the kernel must have run and no plan
-   may have overflowed to the host decoder.
+   may have overflowed to the host decoder. Each frame's plan is then held
+   against the plain version as in phase 2.
 4. Times on the 10 MiB plan, each line with the card's name and power limit:
    plan build, upload, kernel (CUDA events, median), end to end, the plain
-   version and the native host decoder; then one JSON line ``{"kernels": ...}``.
+   version and the native host decoder; the 10 MiB plan at 256- and 512-row
+   tiles is held against the plain version as in phase 2; then one JSON line
+   ``{"kernels": ...}`` whose ``max_abs_err`` covers every comparison.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -76,7 +79,6 @@ def main() -> None:
     from lz4_flex_tpu_torch.ops import _kernels
     from lz4_flex_tpu_torch.ops import ringdecode as R
     from lz4_flex_tpu_torch.ops.decode import decode_block_device
-    from lz4_flex_tpu_torch.ops.sequences import parse_sequences_host
     from lz4_flex_tpu_torch.utils.checksum import xxh32
 
     # ---- 1. probe and build ------------------------------------------------
@@ -125,9 +127,10 @@ def main() -> None:
 
     max_err = {"ring_decode": 0, "ring_decode+checksum": 0}
 
-    def compare(plan, want: bytes, label: str) -> None:
+    def compare(plan, want: bytes, label: str, ts=None) -> None:
         """K1a and K1b against the plain version on one uploaded plan."""
-        ts = R.ring_plan_device_tensors(plan, "cuda")
+        if ts is None:
+            ts = R.ring_plan_device_tensors(plan, "cuda")
         tr, n = plan.tile_rows, plan.total_out
         out = R.ring_decode(*ts, tile_rows=tr)
         out_c, acc = R.ring_decode(*ts, tile_rows=tr, ntot=n)
@@ -194,24 +197,27 @@ def main() -> None:
     print(f"  corpus {n} bytes, one block of {len(comp)} bytes (ratio {len(comp) / n:.4f})")
 
     def write_frame(block_size: BlockSize, linked: bool, block_checksums: bool,
-                    content_checksum: bool) -> bytes:
+                    content_checksum: bool):
+        """The frame, and its body as the (payload, is_compressed) parts
+        that the frame decoder hands to the ring planner."""
         fi = FrameInfo(block_size=block_size,
                        block_mode=BlockMode.Linked if linked else BlockMode.Independent,
                        block_checksums=block_checksums, content_checksum=content_checksum)
         bs = block_size.get_size()
-        out = bytearray(fi.write())
+        out, parts = bytearray(fi.write()), []
         for i in range(0, n, bs):
             raw = data[i : i + bs]
             c = native.compress_block(raw, data[max(0, i - 65536) : i] if linked else b"")
             info, payload = ((BlockInfo(BlockInfoKind.Compressed, len(c)), c) if len(c) < len(raw)
                              else (BlockInfo(BlockInfoKind.Uncompressed, len(raw)), raw))
+            parts.append((payload, info.kind == BlockInfoKind.Compressed))
             out += info.write() + payload
             if block_checksums:
                 out += struct.pack("<I", xxh32(payload))
         out += BlockInfo(BlockInfoKind.EndMark).write()
         if content_checksum:
             out += struct.pack("<I", xxh32(data))
-        return bytes(out)
+        return bytes(out), parts
 
     launches = {"ring_decode": 0, "ring_decode+checksum": 0}
 
@@ -234,18 +240,20 @@ def main() -> None:
     main_path("decode_block_device", lambda: expect(decode_block_device(comp, n), "block"))
     frames = {
         "64 KiB independent, block checksums": (
-            write_frame(BlockSize.Max64KB, False, True, False),
+            write_frame(BlockSize.Max64KB, False, True, False), False,
             CodecConfig(block_size=BlockSize.Max64KB, block_checksums=True)),
         "4 MiB linked, content checksum": (
-            write_frame(BlockSize.Max4MB, True, False, True),
+            write_frame(BlockSize.Max4MB, True, False, True), True,
             CodecConfig(block_size=BlockSize.Max4MB, block_mode=BlockMode.Linked,
                         content_checksum=True)),
     }
-    for label, (f, cfg) in frames.items():
+    for label, ((f, parts), linked, cfg) in frames.items():
         main_path(f"decompress_frame_device ({label})",
                   lambda: expect(decompress_frame_device(f), label))
         main_path(f"LZ4Codec.decompress ({label})",
                   lambda: expect(LZ4Codec(cfg).decompress(f), label))
+        plan, _ = R.build_ring_plan_parts(parts, n, independent=not linked)
+        compare(plan, data, "frame, " + label.split(",")[0])
 
     def consumer() -> None:
         plan = R.build_ring_plan(comp, n)
@@ -299,6 +307,7 @@ def main() -> None:
         ms_b = kernel_ms(lambda: R.ring_decode(*ts, tile_rows=tr, ntot=n))
         plain_a = cuda_host_ms(lambda: R.ring_decode_reference(*ts, tile_rows=tr), 3)
         plain_b = cuda_host_ms(lambda: R.ring_decode_reference(*ts, tile_rows=tr, ntot=n), 3)
+        compare(plan, data, "10 MiB block (main path)", ts=ts)
         fires = int(plan.nf_tot.sum())
         moved = (plan.lit_init.nbytes + fires * plan.rb * 12 + plan.nf_tot.nbytes
                  + plan.ntiles * tr * 128)
@@ -329,12 +338,12 @@ def main() -> None:
           f"decode_block_device_ms={r_e2e:.3f} [{card}]", flush=True)
     e2e_ms = host_ms(lambda: decode_block_device(comp, n), 10)
     host_dec_ms = host_ms(lambda: native.decompress_block(comp, n), 10)
-    parse_ms = host_ms(lambda: parse_sequences_host(comp), 10)
+    measure_ms = host_ms(lambda: native.measure_block(comp), 10)
     flat = R.ring_decode(*ts_main, tile_rows=R.TILE_ROWS).reshape(-1)[:n]
     d2h_ms = cuda_host_ms(lambda: flat.cpu().numpy().tobytes(), 10)
     print(f"  decode_block_device end to end (TR={R.TILE_ROWS}): {e2e_ms:.3f} ms = "
-          f"{n / MIB / (e2e_ms / 1e3):.1f} MiB/s; of it host parse of the input "
-          f"{parse_ms:.3f} ms, output to bytes on the host {d2h_ms:.3f} ms [{card}]")
+          f"{n / MIB / (e2e_ms / 1e3):.1f} MiB/s; of it host size walk of the input "
+          f"{measure_ms:.3f} ms, output to bytes on the host {d2h_ms:.3f} ms [{card}]")
     print(f"  native host decoder on the same block: {host_dec_ms:.3f} ms = "
           f"{n / MIB / (host_dec_ms / 1e3):.1f} MiB/s (yardstick; no single PyTorch call "
           f"computes a ring decode, so library_ms is null) [{card}]")

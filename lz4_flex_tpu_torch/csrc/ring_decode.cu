@@ -33,7 +33,9 @@
 // records), so a warp reads and writes consecutive bytes of a row (no bank
 // conflicts). Each record decodes from its own S and P (the plan's
 // per-fire periodic flags and the row alignment of plain records are not
-// trusted), and padding records are skipped before any address is formed.
+// trusted), padding records are skipped before any address is formed, and
+// every read address and written lane stays inside the table, whatever the
+// record fields hold.
 // The TPU form's one-hot matrix pulls are not copied: on this card a
 // shared-memory byte gather is the direct form.
 //
@@ -158,7 +160,9 @@ ring_decode_kernel(const uint8_t* __restrict__ init,
                 const int ph = a1 & 127;
                 const int P = ((a1 >> 7) & 127) + 1;
                 const int lo = (a1 >> 14) & 127;
-                const int hi = lo + (a2 & 127) + 1;
+                // A record may claim lanes past the row (lo+len > 128); the
+                // spec masks them, so they must not reach the next row.
+                const int hi = min(lo + (a2 & 127) + 1, kLanes);
                 meta[i] = row | (lo << 9) | (hi << 16);
 #pragma unroll
                 for (int k = 0; k < kLanePerThread; ++k) {

@@ -1,34 +1,17 @@
 """Device block decode: the ``parse="ring"`` engine.
 
-The block is parsed and validated on the host (the checked-decode error set
-of lz4_flex src/block/mod.rs:82-98), the native planner turns it into a ring
-plan, and the ring kernel (ops/ringdecode.py) decodes the plan on the card.
+The native size walk measures the block (raising the structural errors of
+the checked-decode error set, lz4_flex src/block/mod.rs:82-98), the native
+planner turns it into a ring plan while it checks every match offset against
+the output so far, and the ring kernel (ops/ringdecode.py) decodes the plan
+on the card.
 """
 
 from __future__ import annotations
 
-import numpy as np
-
 from .. import native as _native
 from ..block import errors as block_errors
 from .ringdecode import decode_block_ring, decode_parts_ring, resolve_device
-from .sequences import SeqTable, parse_sequences_host
-
-
-def _validate(seq: SeqTable, dict_len: int, capacity: int) -> None:
-    """Checked-decode validation on the host-parsed sequence table."""
-    if seq.total_out > capacity:
-        raise block_errors.OutputTooSmall(seq.total_out, capacity)
-    if seq.nseq == 0:
-        return
-    match_start = (
-        seq.out_off.astype(np.int64)
-        + seq.lit_len.astype(np.int64)
-        - seq.match_off.astype(np.int64)
-    )
-    bad = (seq.match_len > 0) & (match_start < -int(dict_len))
-    if bad.any():
-        raise block_errors.OffsetOutOfBounds()
 
 
 def decode_block_device(
@@ -58,13 +41,15 @@ def decode_block_device(
     dev = resolve_device(device)
     comp = _native.as_u8(data)
     dic = _native.as_u8(ext_dict)
-    seq = parse_sequences_host(comp)
-    _validate(seq, dic.shape[0], max_output_size)
     if not dic.shape[0]:
-        return decode_block_ring(comp, seq.total_out, device=dev, as_array=as_array)
+        total = _native.measure_block(comp)
+        if total > max_output_size:
+            raise block_errors.OutputTooSmall(total, max_output_size)
+        return decode_block_ring(comp, total, device=dev, as_array=as_array)
     # Only the dict's last 64 KiB is reachable (LZ4 offsets cap at 65535).
     dtail = dic[-65536:]
     out = decode_parts_ring(
-        [(dtail, False), (comp, True)], independent=False, device=dev, as_array=as_array
+        [(dtail, False), (comp, True)], independent=False,
+        max_block_size=max_output_size, device=dev, as_array=as_array,
     )
     return out[dtail.shape[0]:]

@@ -14,7 +14,7 @@ from lz4_flex_tpu_torch.frame import decompress_frame_device
 from lz4_flex_tpu_torch.ops import ringdecode as R
 from lz4_flex_tpu_torch.ops.decode import decode_block_device
 
-from .torch_inputs import block_inputs, word_soup
+from .torch_inputs import block_inputs, wild_plan_fields, word_soup
 
 pytestmark = pytest.mark.cuda
 
@@ -38,6 +38,20 @@ def test_kernel_equals_reference(card, tile_rows):
         assert torch.equal(out, ref), name
         assert torch.equal(acc, ref_acc), name
         assert out.reshape(-1)[: len(data)].cpu().numpy().tobytes() == data, name
+
+
+@pytest.mark.parametrize("tile_rows", [64, 256, 512])
+def test_kernel_equals_reference_on_wild_records(card, tile_rows):
+    # lo+len > 128, addresses off both ends of the table, garbage bits and
+    # garbage padding fields: no lane of another row and no byte outside the
+    # table may be touched.
+    plan = R.RingPlan.from_arrays(**wild_plan_fields(tile_rows))
+    ts = R.ring_plan_device_tensors(plan, card)
+    out, acc = R.ring_decode(*ts, tile_rows=tile_rows, ntot=plan.total_out)
+    ref, ref_acc = R.ring_decode_reference(*ts, tile_rows=tile_rows, ntot=plan.total_out)
+    assert torch.equal(out, ref)
+    assert torch.equal(acc, ref_acc)
+    assert torch.equal(R.ring_decode(*ts, tile_rows=tile_rows), ref)
 
 
 def test_kernel_rejects_bad_tensors(card):

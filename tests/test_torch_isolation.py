@@ -26,7 +26,6 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch.ops._kernels",
     "lz4_flex_tpu_torch.ops.decode",
     "lz4_flex_tpu_torch.ops.ringdecode",
-    "lz4_flex_tpu_torch.ops.sequences",
     "lz4_flex_tpu_torch.spec",
     "lz4_flex_tpu_torch.spec.constants",
     "lz4_flex_tpu_torch.utils",

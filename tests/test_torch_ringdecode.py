@@ -13,7 +13,7 @@ from lz4_flex_tpu import block
 from lz4_flex_tpu.ops import ringdecode as JR
 from lz4_flex_tpu_torch.ops import ringdecode as R
 
-from .torch_inputs import block_inputs, rle_overlap, word_soup
+from .torch_inputs import block_inputs, rle_overlap, wild_plan_fields, word_soup
 
 INPUTS = block_inputs()
 
@@ -122,6 +122,18 @@ def test_padding_records_with_garbage_fields_are_skipped():
     garbled = R.RingPlan.from_arrays(f0, f1, plan.rec_f2, plan.nf_tot, plan.fper,
                                      plan.lit_init, plan.total_out, plan.tile_rows)
     assert _port_decode(garbled).reshape(-1)[: len(data)].numpy().tobytes() == data
+
+
+@pytest.mark.parametrize("tile_rows", [64, 256, 512])
+def test_wild_record_fields_equal_numpy_sim(tile_rows):
+    # Records whose lanes run past the row (lo+len > 128), whose addresses
+    # fall off either side of the table and whose fields carry garbage
+    # bits: the plain version masks and clamps exactly as the numpy sim.
+    plan = R.RingPlan.from_arrays(**wild_plan_fields(tile_rows))
+    out, acc = _port_decode(plan, ntot=plan.total_out)
+    want = JR.simulate_ring_plan(plan)
+    assert out.reshape(-1)[: plan.total_out].numpy().tobytes() == want
+    assert _lane_sum(acc.numpy()) == R.ring_checksum_expected(want)
 
 
 def test_ring_decode_checks_its_inputs():
