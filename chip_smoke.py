@@ -22,10 +22,19 @@ Phases (any failure raises and the exit code is not 0):
    may have overflowed to the host decoder. Each frame's plan is then held
    against the plain version as in phase 2.
 4. Times on the 10 MiB plan, each line with the card's name and power limit:
-   plan build, upload, kernel (CUDA events, median), end to end, the plain
-   version and the native host decoder; the 10 MiB plan at 256- and 512-row
-   tiles is held against the plain version as in phase 2; then one JSON line
-   ``{"kernels": ...}`` whose ``max_abs_err`` covers every comparison.
+   plan build, upload, kernel (CUDA events, median; warm and with a cold L2),
+   end to end, the plain version and the native host decoder; K1 and the
+   first design of K1 (the fire probe's ``base``) in turns (base, K1, K1,
+   base) on the bench soup at 256- and 512-row tiles and on the match-heavy
+   soup; the 10 MiB plan at 256- and 512-row tiles is held against the plain
+   version as in phase 2.
+5. Probes (lz4_flex_tpu_torch/experiments): every variant of the fire probe
+   on both soups at 256- and 512-row tiles, with the exact ones held against
+   the plain version and each variant's per-tile and per-fire cost; every
+   gather form held against its plain version and timed per pass beside its
+   shared-memory bound. Their launch counters are set to 0 just before.
+   Then one JSON line ``{"kernels": ...}`` whose ``max_abs_err`` covers every
+   comparison.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -33,7 +42,7 @@ The last line of standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
-import random
+import re
 import statistics
 import struct
 import subprocess
@@ -44,25 +53,7 @@ import time
 MIB = 1 << 20
 REPLACES = "lz4_flex_tpu/ops/ringdecode.py:392"
 SOURCE = "lz4_flex_tpu_torch/csrc/ring_decode.cu"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-
-
-def bench_word_soup(n: int, vocab: int = 20000) -> bytes:
-    """bench.py's self-contained corpus: a random.Random(1) vocabulary of
-    ``vocab`` words (20000 there), picked with random.Random(0xD1C8E25)."""
-    rng = random.Random(1)
-    words = [
-        "".join(chr(rng.randrange(97, 123)) for _ in range(rng.randrange(2, 11)))
-        for _ in range(vocab)
-    ]
-    words = list(dict.fromkeys(words))
-    rng = random.Random(0xD1C8E25)
-    out, size = [], 0
-    while size < n:
-        w = words[rng.randrange(len(words))]
-        out.append(w)
-        size += len(w) + 1
-    return " ".join(out).encode()[:n]
+L2_FLUSH_BYTES = 64 * MIB  # written between launches for a cold-L2 time (L2: 50 MB)
 
 
 def main() -> None:
@@ -73,6 +64,9 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card")
 
     from lz4_flex_tpu_torch import native
+    from lz4_flex_tpu_torch.experiments import fire_probe as FP
+    from lz4_flex_tpu_torch.experiments import gather_probe as GP
+    from lz4_flex_tpu_torch.experiments.fire_probe import bench_word_soup, kernel_ms
     from lz4_flex_tpu_torch.frame import decompress_frame_device
     from lz4_flex_tpu_torch.frame.header import BlockInfo, BlockInfoKind, BlockMode, BlockSize, FrameInfo
     from lz4_flex_tpu_torch.models import CodecConfig, LZ4Codec
@@ -99,11 +93,13 @@ def main() -> None:
         t0 = time.perf_counter()
         try:
             built[name] = (fn(), time.perf_counter() - t0)
-        except Exception as e:  # re-raised below, after both builds end
+        except Exception as e:  # re-raised below, after all builds end
             errors.append(e)
 
-    threads = [threading.Thread(target=build, args=a) for a in
-               (("native", native._build), ("ring_decode", _kernels.build_ring_decode))]
+    cuda_stems = ("ring_decode", "fire_probe", "gather_probe")
+    threads = [threading.Thread(target=build, args=("native", native._build))] + [
+        threading.Thread(target=build, args=(stem, lambda stem=stem: _kernels.build(stem)))
+        for stem in cuda_stems]
     for t in threads:
         t.start()
     for t in threads:
@@ -112,12 +108,21 @@ def main() -> None:
         raise errors[0]
     for name, (path, secs) in built.items():
         print(f"build {name}: {secs:.2f} s -> {path}")
-    with open(built["ring_decode"][0] + ".log") as log:
-        for line in log:
-            if "registers" in line or "spill" in line:
-                print("ptxas:", line.strip())
+    for stem in cuda_stems:
+        with open(built[stem][0] + ".log") as log:
+            lines = log.read().splitlines()
+        spills = [ln for ln in lines
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))]
+        print(f"ptxas {stem}: {sum('Compiling entry' in ln for ln in lines)} kernels, "
+              f"{len(spills)} with spills")
+        for ln in lines:
+            if stem == "ring_decode" and ("Compiling entry" in ln or "registers" in ln or "spill" in ln):
+                print("ptxas:", ln.strip())
+            elif ln in spills:
+                print("ptxas spill:", ln.strip())
     native._lib()
-    _kernels.ring_lib()
+    for stem in cuda_stems:
+        _kernels.lib(stem)
 
     def lanes_u32(acc) -> np.ndarray:
         return acc.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
@@ -276,25 +281,27 @@ def main() -> None:
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
-    def kernel_ms(fn, iters: int = 20) -> float:
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(iters):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     def cuda_host_ms(fn, iters: int) -> float:
         def run():
             fn()
             torch.cuda.synchronize()
         return host_ms(run, iters)
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def in_turns(label: str, ts, tr: int) -> dict:
+        """K1 and its first design (the fire probe's ``base``) in turns:
+        base, K1, K1, base, each the median of 20 launches."""
+        fns = {"base": lambda: FP.fire_probe("base", *ts, tile_rows=tr),
+               "K1": lambda: R.ring_decode(*ts, tile_rows=tr)}
+        got = {"base": [], "K1": []}
+        for name in ("base", "K1", "K1", "base"):
+            got[name].append(kernel_ms(fns[name]))
+        b, k = statistics.mean(got["base"]), statistics.mean(got["K1"])
+        print(f"  in turns, {label} TR={tr}: base {got['base'][0]:.4f}, K1 {got['K1'][0]:.4f}, "
+              f"K1 {got['K1'][1]:.4f}, base {got['base'][1]:.4f} ms; K1/base {k / b:.4f} [{card}]",
+              flush=True)
+        return {"base": b, "K1": k}
 
     results = {}
     for tr in (R.TILE_ROWS, 512):
@@ -305,23 +312,24 @@ def main() -> None:
         torch.cuda.synchronize()
         ms_a = kernel_ms(lambda: R.ring_decode(*ts, tile_rows=tr))
         ms_b = kernel_ms(lambda: R.ring_decode(*ts, tile_rows=tr, ntot=n))
+        cold_a = kernel_ms(lambda: R.ring_decode(*ts, tile_rows=tr), flush=flush)
+        turns = in_turns("bench soup", ts, tr)
         plain_a = cuda_host_ms(lambda: R.ring_decode_reference(*ts, tile_rows=tr), 3)
         plain_b = cuda_host_ms(lambda: R.ring_decode_reference(*ts, tile_rows=tr, ntot=n), 3)
         compare(plan, data, "10 MiB block (main path)", ts=ts)
-        fires = int(plan.nf_tot.sum())
-        moved = (plan.lit_init.nbytes + fires * plan.rb * 12 + plan.nf_tot.nbytes
-                 + plan.ntiles * tr * 128)
-        bound_a = moved / HBM_BYTES_PER_S * 1e3
-        bound_b = (moved + 128 * 4) / HBM_BYTES_PER_S * 1e3
+        bound_a = FP.bound_ms(plan)
+        bound_b = (FP.plan_bytes(plan) + 128 * 4) / FP.HBM_BYTES_PER_S * 1e3
         if tr == R.TILE_ROWS:
             ts_main = ts
         results[tr] = dict(ms_a=ms_a, ms_b=ms_b, plain_a=plain_a, plain_b=plain_b,
                            bound_a=bound_a, bound_b=bound_b)
-        print(f"  TR={tr} tiles={plan.ntiles} fires={fires} NF={plan.rec_f0.shape[1]} "
-              f"bytes_moved={moved} [{card}]")
+        print(f"  TR={tr} tiles={plan.ntiles} fires={int(plan.nf_tot.sum())} "
+              f"NF={plan.rec_f0.shape[1]} bytes_moved={FP.plan_bytes(plan)} [{card}]")
         print(f"  TR={tr} plan_build_ms={plan_ms:.4f} h2d_ms={h2d_ms:.4f} "
-              f"kernel_ms={ms_a:.4f} kernel_checksum_ms={ms_b:.4f} "
+              f"kernel_ms={ms_a:.4f} kernel_cold_l2_ms={cold_a:.4f} "
+              f"kernel_checksum_ms={ms_b:.4f} checksum/plain={ms_b / ms_a:.4f} "
               f"kernel_MiB/s={n / MIB / (ms_a / 1e3):.1f} bound_ms={bound_a:.5f} "
+              f"first_design_ms={turns['base']:.4f} "
               f"plain_ms={plain_a:.2f} plain_checksum_ms={plain_b:.2f} [{card}]", flush=True)
     # bench.py's synthetic vocabulary barely compresses (ratio ~0.97); a
     # small vocabulary gives the kernel a match-heavy plan of the same size.
@@ -330,12 +338,17 @@ def main() -> None:
     rplan = R.build_ring_plan(rcomp, len(rich))
     rts = R.ring_plan_device_tensors(rplan, "cuda")
     r_ms = kernel_ms(lambda: R.ring_decode(*rts, tile_rows=rplan.tile_rows))
+    r_cold = kernel_ms(lambda: R.ring_decode(*rts, tile_rows=rplan.tile_rows), flush=flush)
+    r_turns = in_turns("match-heavy soup", rts, rplan.tile_rows)
     if R.ring_decode(*rts, tile_rows=rplan.tile_rows).reshape(-1)[: len(rich)].cpu().numpy().tobytes() != rich:
         raise SystemExit("chip_smoke: the match-heavy soup decoded wrong")
     r_e2e = host_ms(lambda: decode_block_device(rcomp, len(rich)), 10)
     print(f"  match-heavy soup (vocabulary 500, ratio {len(rcomp) / len(rich):.4f}): "
-          f"TR={rplan.tile_rows} fires={int(rplan.nf_tot.sum())} kernel_ms={r_ms:.4f} "
-          f"decode_block_device_ms={r_e2e:.3f} [{card}]", flush=True)
+          f"TR={rplan.tile_rows} tiles={rplan.ntiles} fires={int(rplan.nf_tot.sum())} "
+          f"kernel_ms={r_ms:.4f} kernel_cold_l2_ms={r_cold:.4f} "
+          f"first_design_ms={r_turns['base']:.4f} decode_block_device_ms={r_e2e:.3f} [{card}]",
+          flush=True)
+    del rts
     e2e_ms = host_ms(lambda: decode_block_device(comp, n), 10)
     host_dec_ms = host_ms(lambda: native.decompress_block(comp, n), 10)
     measure_ms = host_ms(lambda: native.measure_block(comp), 10)
@@ -347,6 +360,21 @@ def main() -> None:
     print(f"  native host decoder on the same block: {host_dec_ms:.3f} ms = "
           f"{n / MIB / (host_dec_ms / 1e3):.1f} MiB/s (yardstick; no single PyTorch call "
           f"computes a ring decode, so library_ms is null) [{card}]")
+
+    # ---- 5. probes ------------------------------------------------------------
+    print(f"phase 5: fire probe and gather probe (tolerance for exact variants: "
+          f"byte-exact) [{card}]", flush=True)
+    for counts in (FP.stats, GP.stats):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    fres = FP.run(card, corpora={"bench soup": data, "match-heavy soup": rich})
+    gres = GP.run(card)
+    probe_launches = {**{f"fire_probe:{k}": v for k, v in FP.stats.items()},
+                      **{f"gather_probe:{k}": v for k, v in GP.stats.items()}}
+    print(f"  probes took {time.perf_counter() - t0:.1f} s, launches {probe_launches}")
+    if not all(probe_launches.values()):
+        raise SystemExit("chip_smoke: a probe variant was never launched")
 
     main = results[R.TILE_ROWS]
     kernels = [
@@ -360,6 +388,23 @@ def main() -> None:
          "plain_ms": main["plain_b"], "bound_ms": main["bound_b"], "bound_by": "bytes",
          "library_ms": None},
     ]
+    # Fire probe entries: the 10 MiB bench soup at the main path's tile height.
+    for r in fres["rows"]:
+        if r["tile_rows"] == R.TILE_ROWS and r["corpus"] == "bench soup":
+            v = r["variant"]
+            kernels.append({
+                "name": f"fire_probe:{v}", "route": "cuda", "source": FP.SOURCE,
+                "replaces": FP.REPLACES[v], "launches": FP.stats[v],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": fres["plain_ms"][(R.TILE_ROWS, "bench soup")] if v in FP.EXACT else None,
+                "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None})
+    # Gather forms: one pass (16 KiB gathered from the 96 KiB table).
+    for v, r in gres.items():
+        kernels.append({
+            "name": f"gather_probe:{v}", "route": "cuda", "source": GP.SOURCE,
+            "replaces": GP.REPLACES[GP.function_of(v)], "launches": GP.stats[v],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

@@ -39,17 +39,21 @@ _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 
 
-def build_cached(src: str, stem: str, cmd_for) -> str:
+def build_cached(src: str, stem: str, cmd_for, deps=()) -> str:
     """Compile ``src`` into ``BUILD_DIR/<stem>_<hash>.so`` unless that file
-    exists already; return its path.
+    exists already; return its path. The hash covers ``src`` and the files
+    it includes, listed in ``deps``.
 
     ``cmd_for(out_path)`` gives the compiler command line. A file lock in the
     build directory keeps concurrent processes (test workers) from compiling
     the same source at once; the output is renamed into place atomically.
     Raises RuntimeError with the compiler's stderr when the build fails.
     """
-    with open(src, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in (src, *deps):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    tag = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     so_path = os.path.join(BUILD_DIR, f"{stem}_{tag}.so")
     if os.path.exists(so_path):

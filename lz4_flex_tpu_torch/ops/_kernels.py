@@ -2,8 +2,13 @@
 
 Each source is compiled with nvcc for ``sm_90a`` into a shared library with a
 plain C interface, at first use, into the checkout's ``build/`` directory
-(cached by source hash), and loaded with ctypes. Nothing here runs at import
-time, and nothing falls back: a failed build or launch raises.
+(cached by a hash of the source and its headers), and loaded with ctypes.
+Nothing here runs at import time, and nothing falls back: a failed build or
+launch raises.
+
+  ring_decode   K1, the ring decoder (ops/ringdecode.py)
+  fire_probe    K1's fire loop in variants (experiments/fire_probe.py)
+  gather_probe  shared-memory gather forms (experiments/gather_probe.py)
 """
 
 from __future__ import annotations
@@ -16,9 +21,34 @@ import threading
 from ..native import build_cached
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-RING_DECODE_SRC = os.path.join(_CSRC, "ring_decode.cu")
+# Headers each source includes (part of its build hash).
+_HEADERS = {
+    "ring_decode": ("ring_decode.cuh",),
+    "fire_probe": ("ring_decode.cuh",),
+    "gather_probe": (),
+}
 _LOCK = threading.Lock()
-_RING: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+_vp = ctypes.c_void_p
+_ci = ctypes.c_int
+# C signatures: name -> (restype, argtypes), per library.
+_SIGNATURES = {
+    "ring_decode": {
+        "tlz4_ring_decode": (_ci, [_vp] * 6 + [_ci] * 3 + [ctypes.c_longlong, _vp, _vp]),
+        "tlz4_cuda_error_string": (ctypes.c_char_p, [_ci]),
+    },
+    "fire_probe": {
+        "tlz4_fire_probe": (_ci, [_ci] + [_vp] * 6 + [_ci] * 3 + [_vp]),
+        "tlz4_fire_probe_variants": (_ci, []),
+        "tlz4_fire_probe_error_string": (ctypes.c_char_p, [_ci]),
+    },
+    "gather_probe": {
+        "tlz4_gather_probe": (_ci, [_ci, _vp, _vp, _vp, _ci, _vp]),
+        "tlz4_gather_probe_variants": (_ci, []),
+        "tlz4_gather_probe_error_string": (ctypes.c_char_p, [_ci]),
+    },
+}
 
 
 def find_nvcc() -> str:
@@ -32,44 +62,50 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or /usr/local/cuda/bin")
 
 
-def build_ring_decode() -> str:
-    """Compile csrc/ring_decode.cu (if not cached) and return the library
-    path. ``-Xptxas -v`` leaves registers and spills in ``<path>.log``."""
+def build(stem: str) -> str:
+    """Compile csrc/<stem>.cu (if not cached) and return the library path.
+    ``-Xptxas -v`` leaves registers and spills in ``<path>.log``."""
     nvcc = find_nvcc()
+    src = os.path.join(_CSRC, stem + ".cu")
     return build_cached(
-        RING_DECODE_SRC, "ring_decode",
+        src, stem,
         lambda out: [
             nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", out, RING_DECODE_SRC,
+            "-o", out, src,
         ],
+        deps=[os.path.join(_CSRC, h) for h in _HEADERS[stem]],
     )
 
 
-def ring_lib() -> ctypes.CDLL:
-    global _RING
-    if _RING is None:
+def lib(stem: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<stem>.cu, built at first use."""
+    found = _LIBS.get(stem)
+    if found is None:
         with _LOCK:
-            if _RING is None:
-                lib = ctypes.CDLL(build_ring_decode())
-                vp = ctypes.c_void_p
-                ci = ctypes.c_int
-                lib.tlz4_ring_decode.restype = ci
-                lib.tlz4_ring_decode.argtypes = [
-                    vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_longlong, vp, vp,
-                ]
-                lib.tlz4_cuda_error_string.restype = ctypes.c_char_p
-                lib.tlz4_cuda_error_string.argtypes = [ci]
-                _RING = lib
-    return _RING
+            found = _LIBS.get(stem)
+            if found is None:
+                found = ctypes.CDLL(build(stem))
+                for name, (restype, argtypes) in _SIGNATURES[stem].items():
+                    fn = getattr(found, name)
+                    fn.restype = restype
+                    fn.argtypes = argtypes
+                _LIBS[stem] = found
+    return found
+
+
+def check_launch(err: int, what: str, error_string) -> None:
+    """Raise RuntimeError when a C launcher returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {error_string(err).decode()} ({err})")
 
 
 def launch_ring_decode(init, f0, f1, f2, nf_tot, out, *, tile_rows: int,
                        ntot: int | None, acc, stream: int) -> None:
     """Launch K1 on ``stream`` (tensors already checked by the caller).
     Raises RuntimeError when the launch is refused."""
-    lib = ring_lib()
-    err = lib.tlz4_ring_decode(
+    rl = lib("ring_decode")
+    err = rl.tlz4_ring_decode(
         init.data_ptr(), f0.data_ptr(), f1.data_ptr(), f2.data_ptr(),
         nf_tot.data_ptr(), out.data_ptr(),
         f0.shape[0], f0.shape[1], tile_rows,
@@ -77,6 +113,4 @@ def launch_ring_decode(init, f0, f1, f2, nf_tot, out, *, tile_rows: int,
         None if acc is None else acc.data_ptr(),
         stream,
     )
-    if err != 0:
-        msg = lib.tlz4_cuda_error_string(err).decode()
-        raise RuntimeError(f"ring_decode kernel launch failed: {msg} ({err})")
+    check_launch(err, "ring_decode", rl.tlz4_cuda_error_string)

@@ -293,7 +293,7 @@ def ring_plan_device_tensors(plan: RingPlan, device) -> tuple:
     )
 
 
-def _check_plan_tensors(init, f0, f1, f2, nf_tot, tile_rows: int) -> None:
+def check_plan_tensors(init, f0, f1, f2, nf_tot, tile_rows: int) -> None:
     check_tile_rows(tile_rows)
     nt = nf_tot.shape[0]
     if nf_tot.dtype != torch.int32 or nf_tot.dim() != 1:
@@ -310,6 +310,14 @@ def _check_plan_tensors(init, f0, f1, f2, nf_tot, tile_rows: int) -> None:
         raise ValueError(f"plan tensors lie on several devices: {devs}")
 
 
+def check_kernel_layout(**tensors) -> None:
+    """The kernels take contiguous tensors that start 16-byte aligned (their
+    bulk copies and vector loads need it); raise ValueError otherwise."""
+    for name, t in tensors.items():
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
 def ring_decode(init, f0, f1, f2, nf_tot, *, tile_rows: int = TILE_ROWS,
                 ntot: int | None = None):
     """Run the ring decoder over one uploaded plan.
@@ -321,14 +329,12 @@ def ring_decode(init, f0, f1, f2, nf_tot, *, tile_rows: int = TILE_ROWS,
     launches the kernel K1 (K1b with ``ntot``) and nothing else; on CPU
     tensors it runs :func:`ring_decode_reference`.
     """
-    _check_plan_tensors(init, f0, f1, f2, nf_tot, tile_rows)
+    check_plan_tensors(init, f0, f1, f2, nf_tot, tile_rows)
     if init.device.type != "cuda":
         return ring_decode_reference(init, f0, f1, f2, nf_tot, tile_rows=tile_rows, ntot=ntot)
     from ._kernels import launch_ring_decode
 
-    for name, t in (("init", init), ("f0", f0), ("f1", f1), ("f2", f2), ("nf_tot", nf_tot)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    check_kernel_layout(init=init, f0=f0, f1=f1, f2=f2, nf_tot=nf_tot)
     out = torch.empty(init.shape, dtype=torch.uint8, device=init.device)
     acc = None if ntot is None else torch.empty((1, 128), dtype=torch.int32, device=init.device)
     if nf_tot.shape[0]:

@@ -1,5 +1,5 @@
-"""The ring kernel on the card against its plain PyTorch version, and the
-entry points with their default device. These tests need a CUDA card of
+"""The ring kernel and the probes' kernels on the card against their plain
+PyTorch versions, and the entry points with their default device. These tests need a CUDA card of
 compute capability 9.0+ and skip without one; they import no JAX, so on a
 machine without it they run with
 
@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from lz4_flex_tpu_torch import native
+from lz4_flex_tpu_torch.experiments import fire_probe as FP
+from lz4_flex_tpu_torch.experiments import gather_probe as GP
 from lz4_flex_tpu_torch.frame import decompress_frame_device
 from lz4_flex_tpu_torch.ops import ringdecode as R
 from lz4_flex_tpu_torch.ops.decode import decode_block_device
@@ -84,3 +86,78 @@ def test_kernel_rejects_misaligned_tensors(card):
     shifted.copy_(f0)
     with pytest.raises(ValueError, match="aligned"):
         R.ring_decode(init, shifted, f1, f2, nft, tile_rows=plan.tile_rows)
+
+
+def _slots(tile_rows: int) -> int:
+    """Slots of K1's circular table: the window's, the tile's and a free one."""
+    return 512 // tile_rows + 2
+
+
+def _check_plan(card, plan, data=None):
+    ts = R.ring_plan_device_tensors(plan, card)
+    tr, n = plan.tile_rows, plan.total_out
+    out, acc = R.ring_decode(*ts, tile_rows=tr, ntot=n)
+    ref, ref_acc = R.ring_decode_reference(*ts, tile_rows=tr, ntot=n)
+    assert torch.equal(out, ref)
+    assert torch.equal(acc, ref_acc)
+    assert torch.equal(R.ring_decode(*ts, tile_rows=tr), ref)
+    if data is not None:
+        assert out.reshape(-1)[:n].cpu().numpy().tobytes() == data
+
+
+@pytest.mark.parametrize("tile_rows", [64, 128, 256, 512])
+def test_kernel_wraps_the_circular_table_many_times(card, tile_rows):
+    data = word_soup(6 * tile_rows * 128 * _slots(tile_rows) + 999, seed=21)
+    plan = R.build_ring_plan(native.compress_block(data), len(data), tile_rows=tile_rows)
+    assert plan.ntiles > 5 * _slots(tile_rows)
+    _check_plan(card, plan, data)
+
+
+@pytest.mark.parametrize("tile_rows", [64, 128, 256, 512])
+def test_kernel_one_tile_and_ragged_tile_counts(card, tile_rows):
+    tile = tile_rows * 128
+    for ntiles in (1, 2 * _slots(tile_rows) + 1, 3 * _slots(tile_rows) - 1):
+        data = (word_soup(ntiles * tile, seed=ntiles) + b"ab" * tile)[: ntiles * tile - 77]
+        plan = R.build_ring_plan(native.compress_block(data), len(data), tile_rows=tile_rows)
+        assert plan.ntiles == ntiles
+        _check_plan(card, plan, data)
+
+
+@pytest.mark.parametrize("tile_rows", [64, 256, 512])
+def test_fire_probe_exact_variants_equal_reference(card, tile_rows):
+    inputs = block_inputs()
+    for name in ("periodic_ring_boundary", "deep_chains", "word_soup"):
+        data = inputs[name]
+        plan = R.build_ring_plan(native.compress_block(data), len(data), tile_rows=tile_rows)
+        ts = R.ring_plan_device_tensors(plan, card)
+        ref = R.ring_decode_reference(*ts, tile_rows=tile_rows)
+        for v in FP.EXACT:
+            before = FP.stats[v]
+            assert torch.equal(FP.fire_probe(v, *ts, tile_rows=tile_rows), ref), (name, v)
+            assert FP.stats[v] == before + 1
+    wild = R.RingPlan.from_arrays(**wild_plan_fields(tile_rows))
+    ts = R.ring_plan_device_tensors(wild, card)
+    ref = R.ring_decode_reference(*ts, tile_rows=tile_rows)
+    for v in FP.EXACT:
+        assert torch.equal(FP.fire_probe(v, *ts, tile_rows=tile_rows), ref), ("wild", v)
+
+
+def test_fire_probe_ablations_launch(card):
+    data = word_soup(300000, seed=4)
+    plan = R.build_ring_plan(native.compress_block(data), len(data))
+    ts = R.ring_plan_device_tensors(plan, card)
+    for v in set(FP.VARIANTS) - set(FP.EXACT):
+        before = FP.stats[v]
+        out = FP.fire_probe(v, *ts, tile_rows=plan.tile_rows)
+        torch.cuda.synchronize()
+        assert out.shape == ts[0].shape and FP.stats[v] == before + 1
+
+
+@pytest.mark.parametrize("variant", GP.VARIANTS)
+def test_gather_probe_equals_plain(card, variant):
+    tbl, idx = (torch.from_numpy(a).to(card) for a in GP.make_inputs(GP.function_of(variant), 11))
+    before = GP.stats[variant]
+    got = GP.gather(variant, tbl, idx, reps=3)
+    assert GP.stats[variant] == before + 1
+    want = GP.PLAIN[GP.function_of(variant)](tbl, idx).reshape(GP.OUT_ROWS, GP.WIDTH)
+    assert torch.equal(got, want)

@@ -1,5 +1,6 @@
-"""The port stands alone: importing every module of it (and chip_smoke.py)
-loads neither JAX nor the JAX package, its entry points never drop to the
+"""The port stands alone: importing every module of it (the probes under
+lz4_flex_tpu_torch/experiments included, and chip_smoke.py) loads neither
+JAX nor the JAX package, its entry points never drop to the
 CPU on their own, and chip_smoke.py fails without a card."""
 
 import os
@@ -15,6 +16,9 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch",
     "lz4_flex_tpu_torch.block",
     "lz4_flex_tpu_torch.block.errors",
+    "lz4_flex_tpu_torch.experiments",
+    "lz4_flex_tpu_torch.experiments.fire_probe",
+    "lz4_flex_tpu_torch.experiments.gather_probe",
     "lz4_flex_tpu_torch.frame",
     "lz4_flex_tpu_torch.frame.device",
     "lz4_flex_tpu_torch.frame.errors",
