@@ -33,15 +33,33 @@ Phases (any failure raises and the exit code is not 0):
    the plain version and each variant's per-tile and per-fire cost; every
    gather form held against its plain version and timed per pass beside its
    shared-memory bound. Their launch counters are set to 0 just before.
+6. Streaming decode: ``FrameDecoder(engine="device").read_all()`` on phase
+   3's two frames, a legacy frame of 8 MiB blocks and a concatenation of two
+   frames, each byte-exact, with K1 launched once per batch (the batches
+   counted from the frame by the decoder's budgets) and no overflow (no
+   host decode, no split batch); its time beside ``decompress_frame_device``
+   and the host engine's. The first batch's plan of the 64 KiB and the
+   legacy frame (the shapes this path launches) is held against the plain
+   version as in phase 2.
+7. Encode: the candidate planes on the card held bit-equal to the same torch
+   ops on the CPU (phase 2's inputs and the first quad of the 10 MiB soup);
+   ``compress_block_hybrid`` on both 10 MiB soups, ``LZ4Codec.compress`` (4
+   MiB linked blocks) and ``FrameEncoder(engine="device")`` (1 MiB blocks),
+   each decoded back to its input by the native decoder and the device
+   decoders, with the plane counter set to 0 before each; stage times
+   (plane quad and its sort, upload, plane copy to the host, chunk walks,
+   stitch) and end to end beside ``native.compress_block``.
    Then one JSON line ``{"kernels": ...}`` whose ``max_abs_err`` covers every
-   comparison.
+   comparison and whose K1 launches count every path of phases 3, 6 and 7.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import io
 import json
+import os
 import re
 import statistics
 import struct
@@ -63,6 +81,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card")
 
+    from lz4_flex_tpu_torch import frame as F
     from lz4_flex_tpu_torch import native
     from lz4_flex_tpu_torch.experiments import fire_probe as FP
     from lz4_flex_tpu_torch.experiments import gather_probe as GP
@@ -70,9 +89,11 @@ def main() -> None:
     from lz4_flex_tpu_torch.frame import decompress_frame_device
     from lz4_flex_tpu_torch.frame.header import BlockInfo, BlockInfoKind, BlockMode, BlockSize, FrameInfo
     from lz4_flex_tpu_torch.models import CodecConfig, LZ4Codec
-    from lz4_flex_tpu_torch.ops import _kernels
+    from lz4_flex_tpu_torch.ops import _kernels, packing
+    from lz4_flex_tpu_torch.ops import encode as E
     from lz4_flex_tpu_torch.ops import ringdecode as R
     from lz4_flex_tpu_torch.ops.decode import decode_block_device
+    from lz4_flex_tpu_torch.spec.constants import LZ4F_LEGACY_MAGIC_NUMBER
     from lz4_flex_tpu_torch.utils.checksum import xxh32
 
     # ---- 1. probe and build ------------------------------------------------
@@ -226,7 +247,7 @@ def main() -> None:
 
     launches = {"ring_decode": 0, "ring_decode+checksum": 0}
 
-    def main_path(label: str, fn) -> None:
+    def main_path(label: str, fn) -> dict:
         for k in R.stats:
             R.stats[k] = 0
         fn()
@@ -235,12 +256,16 @@ def main() -> None:
         launches["ring_decode"] += s["kernel_launches"] - s["checksum_launches"]
         launches["ring_decode+checksum"] += s["checksum_launches"]
         print(f"  {label:44s} ok, counts {s}", flush=True)
-        if s["kernel_launches"] == 0 or s["overflow_host_decodes"] != 0:
+        if s["kernel_launches"] == 0 or s["overflow_host_decodes"] or s["overflow_splits"]:
             raise SystemExit(f"chip_smoke: {label} did not run through the kernel: {s}")
+        return s
+
+    def same(got: bytes, want: bytes, label: str) -> None:
+        if got != want:
+            raise SystemExit(f"chip_smoke: {label} output differs from its input")
 
     def expect(got: bytes, label: str) -> None:
-        if got != data:
-            raise SystemExit(f"chip_smoke: {label} output differs from the input")
+        same(got, data, label)
 
     main_path("decode_block_device", lambda: expect(decode_block_device(comp, n), "block"))
     frames = {
@@ -375,6 +400,217 @@ def main() -> None:
     print(f"  probes took {time.perf_counter() - t0:.1f} s, launches {probe_launches}")
     if not all(probe_launches.values()):
         raise SystemExit("chip_smoke: a probe variant was never launched")
+
+    # ---- 6. streaming decode ----------------------------------------------------
+    print(f"phase 6: FrameDecoder(engine='device') on the 10 MiB bench soup "
+          f"(tolerance: byte-exact) [{card}]", flush=True)
+
+    def batches(parts, block_size: int, legacy: bool) -> list[int]:
+        """The blocks of each batch the device engine cuts a frame body
+        into: a batch closes at 32 blocks, past 8 MiB of payload, at 32 MiB
+        of projected output (FrameDecoder's budgets), or at the frame's end."""
+        D = F.FrameDecoder
+        sizes, i = [], 0
+        while i < len(parts):
+            k = total = projected = 0
+            while (i < len(parts) and k < D.DEVICE_BATCH_BLOCKS and total <= D.DEVICE_BATCH_BYTES
+                   and projected < D.DEVICE_BATCH_DECODED_BYTES):
+                payload, is_comp = parts[i]
+                total += len(payload)
+                projected += 8 * MIB if legacy else (block_size if is_comp else len(payload))
+                k, i = k + 1, i + 1
+            sizes.append(k)
+        return sizes
+
+    def device_busy(fn, label: str, top: int = 0) -> None:
+        """One call of ``fn`` under torch.profiler: the union of the card's
+        kernel and copy intervals against the host's wall time of the call
+        (the profiler's own host cost inflates the wall, so the share is a
+        lower bound), and with ``top`` the kernels that took the most."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if not spans:
+            print(f"  {label}: device busy share not measured (the profiler saw no device "
+                  f"event) [{card}]")
+            return
+        busy, end = 0.0, float("-inf")
+        for s, e in spans:
+            if e > end:
+                busy += e - max(s, end)
+                end = e
+        print(f"  {label}: device busy {busy / 1e3:.3f} ms of {wall:.3f} ms wall under the "
+              f"profiler (share {busy / 1e3 / wall:.3f}, {len(spans)} device events) [{card}]")
+        kern = sorted((a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda a: -a.self_device_time_total)
+        for a in kern[:top]:
+            print(f"    {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:90]}")
+
+    legacy_f, legacy_parts = bytearray(struct.pack("<I", LZ4F_LEGACY_MAGIC_NUMBER)), []
+    for i in range(0, n, 8 * MIB):
+        c = native.compress_block(data[i : i + 8 * MIB])
+        legacy_parts.append((c, True))
+        legacy_f += struct.pack("<I", len(c)) + c
+    legacy_f = bytes(legacy_f)
+    (f64, parts64), (f4m, parts4m) = (v[0] for v in frames.values())
+    b64 = batches(parts64, 64 * 1024, False)
+    bleg = batches(legacy_parts, 8 * MIB, True)
+    nb64, nbleg = len(b64), len(bleg)
+    # The first batch's plan of each independent frame, as the decoder
+    # builds it (the 4 MiB linked frame is one batch: phase 3's plan).
+    for label, first in (("first batch, 64 KiB frame", parts64[: b64[0]]),
+                         ("first batch, legacy frame", legacy_parts[: bleg[0]])):
+        total = sum(R.part_sizes(first))
+        plan, _ = R.build_ring_plan_parts(first, total, independent=True)
+        compare(plan, data[:total], f"{label} ({len(first)} blocks)")
+    streams = {
+        "64 KiB independent, block checksums": (f64, nb64, data),
+        "4 MiB linked, content checksum": (f4m, len(batches(parts4m, 4 * MIB, False)), data),
+        "legacy, 8 MiB blocks": (legacy_f, nbleg, data),
+        "64 KiB frame + legacy frame": (f64 + legacy_f, nb64 + nbleg, data + data),
+    }
+    for label, (f, nb, want) in streams.items():
+        def stream_dec(f=f, engine="device"):
+            return F.FrameDecoder(io.BytesIO(f), engine=engine).read_all()
+
+        s = main_path(f"FrameDecoder device ({label})",
+                      lambda: same(stream_dec(), want, label))
+        if s["kernel_launches"] != nb:
+            raise SystemExit(f"chip_smoke: {label}: {s['kernel_launches']} launches "
+                             f"for {nb} batches")
+        same(stream_dec(engine="host"), want, label)
+        dev_ms = host_ms(stream_dec, 5)
+        one_ms = host_ms(lambda: decompress_frame_device(f), 5)
+        hst_ms = host_ms(lambda: stream_dec(engine="host"), 5)
+        mib = len(want) / MIB
+        print(f"  {label}: {nb} batches; FrameDecoder device {dev_ms:.3f} ms = "
+              f"{mib / (dev_ms / 1e3):.1f} MiB/s, decompress_frame_device {one_ms:.3f} ms = "
+              f"{mib / (one_ms / 1e3):.1f} MiB/s, FrameDecoder host {hst_ms:.3f} ms = "
+              f"{mib / (hst_ms / 1e3):.1f} MiB/s [{card}]", flush=True)
+        if nb > 1:
+            device_busy(stream_dec, f"FrameDecoder device ({label})")
+            device_busy(lambda: decompress_frame_device(f), f"decompress_frame_device ({label})")
+
+    # ---- 7. encode and round trip -----------------------------------------------
+    print(f"phase 7: hybrid encode (candidate planes: torch ops; tolerance: bit-exact "
+          f"against the same ops on the CPU) [{card}]", flush=True)
+
+    def plane_err(a, b) -> int:
+        return int(((a.cpu().int() & 0xFFFF) - (b.int() & 0xFFFF)).abs().max())
+
+    plane_max_err = 0
+    for label, blk in blocks.items():
+        g = packing.pad_to(np.frombuffer(blk, np.uint8).copy(), packing.size_bucket(len(blk) + 4))
+        on_card, on_cpu = torch.from_numpy(g).cuda(), torch.from_numpy(g)
+        errs = [int((a.cpu().long() - b.long()).abs().max())
+                for a, b in zip(E.candidates_core(on_card), E.candidates_core(on_cpu))]
+        errs.append(plane_err(E.best_plane_core(on_card, 4), E.best_plane_core(on_cpu, 4)))
+        plane_max_err = max(plane_max_err, *errs)
+        print(f"  {label:24s} {len(g)} positions: d12/d34/plane max_abs_err {errs}")
+    G = np.frombuffer(data, np.uint8)
+    bucket, starts, limits, groups = E._stream_rows(n, 0, n)
+    ghost = packing.pad_to(G.copy(), bucket)
+    gpad = torch.from_numpy(ghost).cuda()
+    quad = E._best_plane_quad(gpad, groups[0])
+    e = plane_err(quad, E._best_plane_quad(torch.from_numpy(ghost), groups[0]))
+    plane_max_err = max(plane_max_err, e)
+    print(f"  first quad of the 10 MiB soup ({len(starts)} chunk rows, {len(groups)} quads): "
+          f"max_abs_err {e}")
+    if plane_max_err:
+        raise SystemExit("chip_smoke: the candidate planes on the card differ from the CPU's")
+
+    def encode_path(label: str, fn, quads: int | None = None):
+        for k in E.stats:
+            E.stats[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        s = dict(E.stats)
+        print(f"  {label:44s} counts {s}", flush=True)
+        if s["plane_quads"] == 0 or (quads is not None and s["plane_quads"] != quads):
+            raise SystemExit(f"chip_smoke: {label} did not compute its planes on the card: {s}")
+        return out, s
+
+    plane_launches = 0
+    hybrid = {}
+    for label, src in (("bench soup", data), ("match-heavy soup", rich)):
+        comp_h, s = encode_path(f"compress_block_hybrid ({label})",
+                                lambda: E.compress_block_hybrid(src), len(groups))
+        plane_launches += s["plane_quads"]
+        same(native.decompress_block(comp_h, len(src)), src, f"hybrid wire ({label})")
+        main_path(f"decode_block_device of the hybrid wire ({label})",
+                  lambda: same(decode_block_device(comp_h, len(src)), src, label))
+        hybrid[label] = comp_h
+    cfg4 = CodecConfig(block_size=BlockSize.Max4MB, block_mode=BlockMode.Linked,
+                       content_checksum=True)
+    f_codec, s = encode_path("LZ4Codec.compress (4 MiB linked)", lambda: LZ4Codec(cfg4).compress(data))
+    plane_launches += s["plane_quads"]
+    main_path("LZ4Codec.decompress of it", lambda: expect(LZ4Codec(cfg4).decompress(f_codec), "codec"))
+    main_path("FrameDecoder device of it",
+              lambda: expect(F.FrameDecoder(io.BytesIO(f_codec), engine="device").read_all(), "codec"))
+
+    def stream_enc():
+        buf = io.BytesIO()
+        with F.FrameEncoder(buf, FrameInfo(block_size=BlockSize.Max1MB), engine="device") as enc:
+            for i in range(0, n, 3 * MIB + 12345):
+                enc.write(data[i : i + 3 * MIB + 12345])
+        return buf.getvalue()
+
+    f_enc, s = encode_path("FrameEncoder device (1 MiB independent)", stream_enc)
+    plane_launches += s["plane_quads"]
+    main_path("FrameDecoder device of it",
+              lambda: expect(F.FrameDecoder(io.BytesIO(f_enc), engine="device").read_all(), "enc"))
+    expect(F.decompress(f_enc), "FrameEncoder device, host read")
+
+    # stage times of the streaming encode on the 10 MiB bench soup
+    plane_ms = kernel_ms(lambda: E._best_plane_quad(gpad, groups[0]), iters=10)
+    rows = torch.stack([gpad[s : s + E._CHUNK_W] for s in groups[0]])
+    w4 = E._u32_bits(E._words(rows))
+    sort_ms = kernel_ms(lambda: torch.sort(w4, dim=-1, stable=True), iters=10)
+    pinned = torch.empty(quad.shape, dtype=quad.dtype, pin_memory=True)
+    d2h_ms = cuda_host_ms(lambda: pinned.copy_(quad), 10)
+    up_ms = cuda_host_ms(lambda: torch.from_numpy(ghost).cuda(), 10)
+    planes = [E._best_plane_quad(gpad, g).cpu().numpy().view(np.uint16) for g in groups]
+    walk_times, stitch_times = [], []
+    for _ in range(5):
+        walks = E._ChunkWalks(G, 0, n, starts, limits)
+        t0 = time.perf_counter()
+        for q, p in enumerate(planes):
+            walks.submit(q * E._PLANE_ROWS, p)
+        walks.wait()
+        t1 = time.perf_counter()
+        staged = walks.stitch()
+        walk_times.append((t1 - t0) * 1e3)
+        stitch_times.append((time.perf_counter() - t1) * 1e3)
+    same(staged, hybrid["bench soup"], "staged streaming encode")
+    plane_bound = len(groups[0]) * (E._CHUNK_W + 2 * E._CHUNK_W // E._PLANE_POOL) / FP.HBM_BYTES_PER_S * 1e3
+    print(f"  device program best_plane quad ({len(groups[0])} rows of {E._CHUNK_W} B): "
+          f"{plane_ms:.4f} ms (CUDA events, median of 10), of it the sort {sort_ms:.4f} ms "
+          f"({sort_ms / plane_ms:.3f}); bytes bound {plane_bound:.5f} ms; launches on the "
+          f"main path {plane_launches}; max_abs_err {plane_max_err} [{card}]")
+    print(f"  streaming stages: upload {up_ms:.3f} ms, plane d2h {d2h_ms:.3f} ms a quad, "
+          f"walks {statistics.median(walk_times):.3f} ms ({len(starts)} chunks, "
+          f"{os.cpu_count()} host cores), stitch "
+          f"{statistics.median(stitch_times):.3f} ms [{card}]", flush=True)
+    for label, src in (("bench soup", data), ("match-heavy soup", rich)):
+        hyb_ms = host_ms(lambda: E.compress_block_hybrid(src), 5)
+        nat = native.compress_block(src)
+        nat_ms = host_ms(lambda: native.compress_block(src), 5)
+        m = len(src) / MIB
+        print(f"  {label}: compress_block_hybrid {hyb_ms:.3f} ms = {m / (hyb_ms / 1e3):.1f} MiB/s, "
+              f"ratio {len(hybrid[label]) / len(src):.4f}; native.compress_block {nat_ms:.3f} ms = "
+              f"{m / (nat_ms / 1e3):.1f} MiB/s, ratio {len(nat) / len(src):.4f} [{card}]",
+              flush=True)
+        device_busy(lambda: E.compress_block_hybrid(src), f"compress_block_hybrid ({label})",
+                    top=6 if src is data else 0)
+    codec_ms = host_ms(lambda: LZ4Codec(cfg4).compress(data), 3)
+    print(f"  LZ4Codec.compress (4 MiB linked) {codec_ms:.3f} ms = "
+          f"{n / MIB / (codec_ms / 1e3):.1f} MiB/s, ratio {len(f_codec) / n:.4f} [{card}]")
 
     main = results[R.TILE_ROWS]
     kernels = [

@@ -1,15 +1,22 @@
-"""One-shot frame decode on the device engine.
+"""One-shot frame codec on the device engine.
 
-Every frame body in ``data`` goes through the ring decoder as one plan
-(ops/ringdecode.py: decode_parts_ring), linked or independent; the frame
-walk, header and checksum handling match the reference's wire format:
-descriptor, BlockInfo words with stored blocks, optional xxHash32 block and
-content checksums, end mark, legacy and skippable frames, and concatenated
-frames.
+Encode: a FrameEncoder on the device engine (frame/encoder.py) given the
+whole input: its blocks go through the hybrid encoder on the card
+(parallel/pipeline.py: encode_blocks), one block at a time, a linked block's
+dictionary being the 64 KiB of input before it.
+
+Decode: every frame body in ``data`` goes through the ring decoder as one
+plan (ops/ringdecode.py: decode_parts_ring), linked or independent.
+
+The frame walk, header and checksum handling match the reference's wire
+format: descriptor, BlockInfo words with the stored-block fallback, optional
+xxHash32 block and content checksums, end mark, legacy and skippable frames,
+and concatenated frames.
 """
 
 from __future__ import annotations
 
+import io
 import struct
 
 from ..block.errors import DecompressError
@@ -32,6 +39,27 @@ def _is_any_magic(word: int) -> bool:
         or word == LZ4F_LEGACY_MAGIC_NUMBER
         or LZ4F_SKIPPABLE_MAGIC_MIN <= word <= LZ4F_SKIPPABLE_MAGIC_MAX
     )
+
+
+def compress_frame_device(data, frame_info: FrameInfo | None = None, *, device=None) -> bytes:
+    """Compress ``data`` into one LZ4 frame with the device encoder: a
+    :class:`FrameEncoder` on ``engine="device"`` given all of ``data`` in one
+    write, the promised content size checked before any block is encoded.
+
+    ``device=None`` means the CUDA card; ``device="cpu"`` computes the
+    candidate planes on the CPU. Frames of 64 and 256 KiB blocks raise
+    NotImplementedError (their encoder, ROADMAP item 6, is not ported)."""
+    from .encoder import FrameEncoder
+
+    data = bytes(data)
+    fi = frame_info if frame_info is not None else FrameInfo()
+    buf = io.BytesIO()
+    enc = FrameEncoder(buf, fi, engine="device", device=device)
+    if fi.content_size is not None and fi.content_size != len(data):
+        raise errors.ContentLengthError(fi.content_size, len(data))
+    enc.write(data)
+    enc.finish()
+    return buf.getvalue()
 
 
 def decompress_frame_device(data, *, device=None) -> bytes:

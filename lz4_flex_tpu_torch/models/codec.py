@@ -1,9 +1,11 @@
 """The flagship model: a configured LZ4 codec on the device.
 
-Bundles the frame wire format (frame/) and the device decode (ops/) behind
+Bundles the frame wire format (frame/) and the device codec (ops/) behind
 one object: a configuration (block size and mode, checksums — the
 reference's FrameInfo setters, src/frame/header.rs:130-192) and the
-byte-level decode methods. Encode comes with the encode slice of the port.
+byte-level methods. The batched array steps (``encode_step`` and
+``decode_step``) and ``compress_block`` come with the all-device encoder and
+the fallback decode engines (ROADMAP items 6 and 8).
 """
 
 from __future__ import annotations
@@ -33,11 +35,19 @@ class CodecConfig:
 
 class LZ4Codec:
     """End-to-end device codec. ``device=None`` means the CUDA card;
-    ``device="cpu"`` runs the ring kernel's plain PyTorch version."""
+    ``device="cpu"`` runs the device programs' plain PyTorch versions."""
 
     def __init__(self, config: CodecConfig | None = None, *, device=None) -> None:
         self.config = config or CodecConfig()
         self.device = device
+
+    def compress(self, data) -> bytes:
+        """Compress ``data`` into one LZ4 frame on the device. Blocks under
+        448 KiB (the 64 and 256 KiB sizes, including the default config's)
+        raise NotImplementedError until the all-device encoder is ported."""
+        from ..frame.device import compress_frame_device
+
+        return compress_frame_device(data, self.config.frame_info(), device=self.device)
 
     def decompress(self, data) -> bytes:
         """Decompress every concatenated LZ4 frame in ``data``."""

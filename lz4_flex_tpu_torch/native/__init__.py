@@ -1,6 +1,8 @@
 """ctypes bindings for the port's copy of the native host runtime
 (lz4_native.cpp): the ring-plan builder, the token-walk decoder, the
-size-only measure walk, the sequence parser, xxHash32 and the block encoder.
+size-only measure walk, the sequence parser, xxHash32, the
+block encoder with its carried match table, and the hybrid encoder's host
+walks over device candidate planes.
 
 The shared library is compiled with g++ at first use into the checkout's
 ``build/`` directory, keyed by a hash of the source, so a fresh checkout
@@ -33,6 +35,7 @@ ERR_OFFSET_ZERO = -4
 ERR_OFFSET_OOB = -5
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
+_u16p = ctypes.POINTER(ctypes.c_uint16)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _i32p = ctypes.POINTER(ctypes.c_int32)
@@ -98,6 +101,26 @@ def _lib() -> ctypes.CDLL:
                     _u8p, ctypes.c_size_t,
                     ctypes.c_uint64, _u64p, ctypes.c_int,
                 ]
+                lib.tlz4_compress_with_candidates.restype = ctypes.c_int64
+                lib.tlz4_compress_with_candidates.argtypes = [
+                    _u8p, ctypes.c_int64, ctypes.c_int64,
+                    _u32p, _u32p,
+                    _i64p, _i32p, ctypes.c_int32, ctypes.c_int64,
+                    _u8p, ctypes.c_int64,
+                ]
+                lib.tlz4_hybrid_walk_chunk.restype = ctypes.c_int64
+                lib.tlz4_hybrid_walk_chunk.argtypes = [
+                    _u8p, ctypes.c_int64,
+                    _u16p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_int32,
+                    _u8p, ctypes.c_int64, ctypes.c_int32, _i64p,
+                ]
+                lib.tlz4_hybrid_stitch.restype = ctypes.c_int64
+                lib.tlz4_hybrid_stitch.argtypes = [
+                    _u8p, ctypes.c_int64,
+                    _u8p, _i64p, _i64p, _i64p, _i64p, ctypes.c_int32,
+                    _u8p, ctypes.c_int64,
+                ]
                 lib.tlz4_decompress_block.restype = ctypes.c_int64
                 lib.tlz4_decompress_block.argtypes = [
                     _u8p, ctypes.c_size_t,
@@ -156,24 +179,144 @@ def compress_bound(n: int) -> int:
     return 16 + 4 + (n * 110) // 100
 
 
-def compress_block(data, ext_dict=b"") -> bytes:
-    """Greedy block encode of ``data`` against an optional dictionary (the
-    previous 64 KiB of a linked frame)."""
+def new_table() -> np.ndarray:
+    """A fresh (zeroed) 4096-entry match table."""
+    return np.zeros(4096, dtype=np.uint64)
+
+
+def _check_table(table: np.ndarray) -> None:
+    if table.dtype != np.uint64 or table.shape != (4096,) or not table.flags.c_contiguous:
+        raise ValueError("table must be a contiguous (4096,) uint64 array (see new_table)")
+
+
+def _compress_too_small():
+    from ..block.errors import CompressOutputTooSmall
+
+    return CompressOutputTooSmall()
+
+
+def compress_block(
+    data,
+    ext_dict=b"",
+    input_pos: int = 0,
+    input_stream_offset: int | None = None,
+    table: np.ndarray | None = None,
+    use_hash5: bool | None = None,
+) -> bytes:
+    """Greedy block encode of ``data[input_pos:]`` against an optional
+    dictionary (the previous 64 KiB of a linked frame).
+
+    The parameters are the JAX package's ``native.compress_block`` (less
+    its ``out`` buffer), with ``ext_dict`` second so that ``compress_block(data, dic)`` reads as
+    before. A streaming encoder keeps the window in ``data[:input_pos]``
+    and carries ``table`` (see :func:`new_table`) across blocks, with
+    ``input_stream_offset`` the stream position of ``data[0]``."""
     src = as_u8(data)
     dic = as_u8(ext_dict)
-    out = np.empty(compress_bound(src.size), dtype=np.uint8)
-    table = np.zeros(4096, dtype=np.uint64)
+    if not 0 <= input_pos <= src.size:
+        raise ValueError(f"input_pos {input_pos} outside the input (size {src.size})")
+    if input_stream_offset is None:
+        input_stream_offset = dic.size
+    if use_hash5 is None:
+        use_hash5 = dic.size + src.size >= 0xFFFF
+    if table is None:
+        table = new_table()
+    _check_table(table)
+    out = np.empty(compress_bound(src.size - input_pos), dtype=np.uint8)
     n = _lib().tlz4_compress_block(
-        _ptr(src), src.size, 0,
+        _ptr(src), src.size, input_pos,
         _ptr(out), out.size,
         _ptr(dic), dic.size,
-        dic.size,
-        table.ctypes.data_as(_u64p), int(dic.size + src.size >= 0xFFFF),
+        input_stream_offset,
+        table.ctypes.data_as(_u64p), int(use_hash5),
     )
     if n < 0:
-        from ..block.errors import CompressOutputTooSmall
+        raise _compress_too_small()
+    return out[:n].tobytes()
 
-        raise CompressOutputTooSmall()
+
+def _c_array(arr: np.ndarray, dtype, name: str) -> np.ndarray:
+    if arr.dtype != dtype or not arr.flags.c_contiguous:
+        raise ValueError(f"{name} must be a contiguous {np.dtype(dtype).name} array")
+    return arr
+
+
+def compress_with_candidates(G: np.ndarray, dict_len: int, d12: np.ndarray, d34: np.ndarray,
+                             gstart: np.ndarray, dvec: np.ndarray) -> bytes:
+    """The hybrid encoder's host walk over whole candidate rows: ``G`` is the
+    dictionary (its first ``dict_len`` bytes) followed by the data, ``d12``
+    and ``d34`` the (nrows, pad) uint32 candidate planes of ``candidates_core``
+    whose row r starts at ``G[gstart[r]]`` with ``dvec[r]`` bytes of
+    dictionary. Every candidate is re-extended with exact byte compares."""
+    G = _c_array(G, np.uint8, "G")
+    d12, d34 = _c_array(d12, np.uint32, "d12"), _c_array(d34, np.uint32, "d34")
+    gstart, dvec = _c_array(gstart, np.int64, "gstart"), _c_array(dvec, np.int32, "dvec")
+    nrows, pad = d12.shape
+    if d34.shape != d12.shape or gstart.shape != (nrows,) or dvec.shape != (nrows,):
+        raise ValueError("d12, d34, gstart and dvec must agree on the row count")
+    if nrows * pad < G.size - int(gstart[0]):
+        raise ValueError("the candidate rows do not cover the input")
+    cap = compress_bound(G.size - dict_len)
+    out = np.empty(cap, np.uint8)
+    n = _lib().tlz4_compress_with_candidates(
+        _ptr(G), G.size, dict_len,
+        d12.ctypes.data_as(_u32p), d34.ctypes.data_as(_u32p),
+        gstart.ctypes.data_as(_i64p), dvec.ctypes.data_as(_i32p), nrows, pad,
+        _ptr(out), cap,
+    )
+    if n < 0:
+        raise _compress_too_small()
+    return out[:n].tobytes()
+
+
+def hybrid_walk_chunk(G: np.ndarray, plane: np.ndarray, row_gstart: int, chunk_start: int,
+                      chunk_limit: int, pool_shift: int, out: np.ndarray,
+                      final_chunk: bool) -> tuple[int, int]:
+    """One self-contained chunk walk of the streaming hybrid encoder: the
+    sequences whose cursor starts in ``[chunk_start, chunk_limit)`` of
+    ``G``, probing the pooled uint16 best-delta ``plane`` of the chunk row
+    that starts at ``G[row_gstart]``. Writes the wire into ``out`` and
+    returns (length, start of the pending literal tail); the tail of a
+    non-final chunk is left for :func:`hybrid_stitch`. Releases the GIL, so
+    walks run concurrently on threads."""
+    G = _c_array(G, np.uint8, "G")
+    plane = _c_array(plane, np.uint16, "plane")
+    out = _c_array(out, np.uint8, "out")
+    if not 0 <= row_gstart <= chunk_start <= chunk_limit <= G.size:
+        raise ValueError("chunk bounds outside the input")
+    tail = np.zeros(1, np.int64)
+    n = _lib().tlz4_hybrid_walk_chunk(
+        _ptr(G), G.size,
+        plane.ctypes.data_as(_u16p), row_gstart, chunk_start, chunk_limit,
+        plane.size, pool_shift,
+        _ptr(out), out.size, int(final_chunk), tail.ctypes.data_as(_i64p),
+    )
+    if n < 0:
+        raise _compress_too_small()
+    return int(n), int(tail[0])
+
+
+def hybrid_stitch(G: np.ndarray, wires: np.ndarray, wire_off: np.ndarray, wire_len: np.ndarray,
+                  chunk_start: np.ndarray, tails: np.ndarray, cap: int) -> bytes:
+    """Assemble the chunk walks' wires (``wires[wire_off[i]:][:wire_len[i]]``)
+    into one block: each pending literal tail merges into the next chunk's
+    first sequence."""
+    G, wires = _c_array(G, np.uint8, "G"), _c_array(wires, np.uint8, "wires")
+    arrs = [_c_array(a, np.int64, name) for a, name in (
+        (wire_off, "wire_off"), (wire_len, "wire_len"), (chunk_start, "chunk_start"),
+        (tails, "tails"))]
+    nchunks = wire_off.shape[0]
+    if any(a.shape != (nchunks,) for a in arrs):
+        raise ValueError("the per-chunk arrays must have one length")
+    if nchunks and int((wire_off + wire_len).max()) > wires.size:
+        raise ValueError("a chunk wire lies outside the wire buffer")
+    out = np.empty(cap, np.uint8)
+    n = _lib().tlz4_hybrid_stitch(
+        _ptr(G), G.size, _ptr(wires), *(a.ctypes.data_as(_i64p) for a in arrs), nchunks,
+        _ptr(out), cap,
+    )
+    if n < 0:
+        raise _compress_too_small()
     return out[:n].tobytes()
 
 

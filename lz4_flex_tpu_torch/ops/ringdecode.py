@@ -67,9 +67,12 @@ PLAN_OVERFLOW_CODES = (-100, -102, -103, -104)
 
 #: Public counters. ``kernel_launches`` counts every launch of the ring
 #: kernel (K1), ``checksum_launches`` those of its checksum variant (K1b),
-#: ``overflow_host_decodes`` every decode that fell to the native host
-#: decoder because the plan overflowed its static shape.
-stats = {"kernel_launches": 0, "checksum_launches": 0, "overflow_host_decodes": 0}
+#: ``overflow_host_decodes`` every one-shot decode that fell to the native
+#: host decoder because the plan overflowed its static shape, and
+#: ``overflow_splits`` every streaming batch that was split into two plans
+#: for the same reason (frame/decoder.py).
+stats = {"kernel_launches": 0, "checksum_launches": 0, "overflow_host_decodes": 0,
+         "overflow_splits": 0}
 
 
 def check_tile_rows(tile_rows: int) -> None:
@@ -268,7 +271,7 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda":
         if not ring_engine_available():
             raise RuntimeError(
-                "the ring decoder needs a CUDA card of compute capability 9.0+ "
+                "the device codec needs a CUDA card of compute capability 9.0+ "
                 "(pass device='cpu' to run the plain PyTorch version)"
             )
     elif dev.type != "cpu":
@@ -441,22 +444,34 @@ def decode_block_ring(comp, total_out: int, *, device=None, as_array: bool = Fal
     return flat if as_array else _to_bytes(flat)
 
 
-def dispatch_parts_ring(parts, *, independent: bool = False,
-                        max_block_size: int | None = None, device=None):
-    """Build the plan and launch the ring kernel for a frame body without
-    synchronizing: returns (flat uint8 tensor on ``device``, total_out) —
-    bytes past ``total_out`` are padding — or None when the plan overflows
-    its static shape."""
-    dev = resolve_device(device)
-    total = 0
+def part_sizes(parts, max_block_size: int | None = None) -> list[int]:
+    """The decoded size of each (payload, is_compressed) part: the host size
+    walk of the compressed ones. Raises the block error taxonomy on
+    malformed input and ``OutputTooSmall`` past ``max_block_size``."""
+    sizes = []
     for payload, is_comp in parts:
         if is_comp:
             n_out = _native.measure_block(payload)
             if max_block_size is not None and n_out > max_block_size:
                 raise block_errors.OutputTooSmall(n_out, max_block_size)
-            total += n_out
+            sizes.append(n_out)
         else:
-            total += len(payload)
+            sizes.append(len(payload))
+    return sizes
+
+
+def dispatch_parts_ring(parts, *, independent: bool = False,
+                        max_block_size: int | None = None, device=None,
+                        sizes: list[int] | None = None):
+    """Build the plan and launch the ring kernel for a frame body without
+    synchronizing: returns (flat uint8 tensor on ``device``, total_out) —
+    bytes past ``total_out`` are padding — or None when the plan overflows
+    its static shape. ``sizes`` (from :func:`part_sizes`) skips the size
+    walk."""
+    dev = resolve_device(device)
+    if sizes is None:
+        sizes = part_sizes(parts, max_block_size)
+    total = sum(sizes)
     if total == 0:
         return torch.empty(0, dtype=torch.uint8, device=dev), 0
     plan, _ = build_ring_plan_parts(parts, total, independent=independent)

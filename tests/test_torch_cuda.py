@@ -6,13 +6,19 @@ machine without it they run with
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import io
+
+import numpy as np
 import pytest
 import torch
 
-from lz4_flex_tpu_torch import native
+from lz4_flex_tpu_torch import frame, native
 from lz4_flex_tpu_torch.experiments import fire_probe as FP
 from lz4_flex_tpu_torch.experiments import gather_probe as GP
 from lz4_flex_tpu_torch.frame import decompress_frame_device
+from lz4_flex_tpu_torch.models import LZ4Codec
+from lz4_flex_tpu_torch.ops import encode as E
+from lz4_flex_tpu_torch.ops import packing
 from lz4_flex_tpu_torch.ops import ringdecode as R
 from lz4_flex_tpu_torch.ops.decode import decode_block_device
 
@@ -151,6 +157,69 @@ def test_fire_probe_ablations_launch(card):
         out = FP.fire_probe(v, *ts, tile_rows=plan.tile_rows)
         torch.cuda.synchronize()
         assert out.shape == ts[0].shape and FP.stats[v] == before + 1
+
+
+def _frame(data: bytes, **kw) -> bytes:
+    return frame.compress(data, frame.FrameInfo(**kw))
+
+
+def test_frame_decoder_device_engine_equals_cpu_run(card, monkeypatch):
+    # 13 blocks of 64 KiB in batches of 4: four pipelined launches; linked
+    # batches decode synchronously, one launch each.
+    monkeypatch.setattr(frame.FrameDecoder, "DEVICE_BATCH_BLOCKS", 4)
+    data = word_soup(800000, seed=31)
+    for mode in (frame.BlockMode.Independent, frame.BlockMode.Linked):
+        f = _frame(data, block_size=frame.BlockSize.Max64KB, block_mode=mode,
+                   block_checksums=True, content_checksum=True)
+        before = dict(R.stats)
+        got = frame.FrameDecoder(io.BytesIO(f), engine="device").read_all()
+        assert R.stats["kernel_launches"] == before["kernel_launches"] + 4
+        assert R.stats["overflow_host_decodes"] == before["overflow_host_decodes"]
+        assert got == data
+        assert frame.FrameDecoder(io.BytesIO(f), engine="device", device="cpu").read_all() == got
+    legacy = _frame(data, legacy_frame=True)
+    assert frame.FrameDecoder(io.BytesIO(legacy + f), engine="device").read_all() == data + data
+
+
+@pytest.mark.parametrize("name", ["word_soup", "periodic_ring_boundary", "incompressible", "rle"])
+def test_candidate_planes_equal_cpu_run(card, name):
+    data = block_inputs()[name]
+    g = packing.pad_to(np.frombuffer(data, np.uint8).copy(), packing.size_bucket(len(data) + 4))
+    on_card, on_cpu = torch.from_numpy(g).to(card), torch.from_numpy(g)
+    for a, b in zip(E.candidates_core(on_card), E.candidates_core(on_cpu)):
+        assert torch.equal(a.cpu(), b)
+    for pool in (4, 2):
+        assert torch.equal(E.best_plane_core(on_card, pool).cpu(), E.best_plane_core(on_cpu, pool))
+
+
+def test_hybrid_encode_equals_cpu_run(card, monkeypatch):
+    monkeypatch.setattr(E, "_PLANE_ROWS", 2)  # 3 chunk rows: two dispatches, the last ragged
+    dic = word_soup(70000, seed=32)
+    for data, ext in ((word_soup(300000, seed=33), b""), (word_soup(300000, seed=33), dic),
+                      (word_soup(1350000, seed=34), b""), (word_soup(1000000, seed=35), dic)):
+        before = E.stats["plane_quads"]
+        got = E.compress_block_hybrid(data, ext)
+        assert got == E.compress_block_hybrid(data, ext, device="cpu")
+        streams = len(ext[-65536:]) + len(data) + 4 > E._CHUNK_W
+        rows = -(-len(data) // E._CHUNK_C) if streams else 0
+        assert E.stats["plane_quads"] == before + 2 * -(-rows // 2)  # the card's run and the CPU's
+        assert native.decompress_block(got, len(data), ext[-65536:]) == data
+        assert decode_block_device(got, len(data), ext_dict=ext[-65536:]) == data
+
+
+def test_device_frame_encode_equals_cpu_run(card):
+    data = word_soup(2500000, seed=36)
+    fi = dict(block_size=frame.BlockSize.Max1MB, block_mode=frame.BlockMode.Linked,
+              content_checksum=True)
+    f = frame.compress_frame_device(data, frame.FrameInfo(**fi))
+    assert f == frame.compress_frame_device(data, frame.FrameInfo(**fi), device="cpu")
+    buf = io.BytesIO()
+    with frame.FrameEncoder(buf, frame.FrameInfo(**fi), engine="device") as enc:
+        enc.write(data)
+    assert buf.getvalue() == f
+    assert frame.FrameDecoder(io.BytesIO(f), engine="device").read_all() == data
+    with pytest.raises(NotImplementedError, match="item 6"):
+        LZ4Codec().compress(data)
 
 
 @pytest.mark.parametrize("variant", GP.VARIANTS)

@@ -19,8 +19,11 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch.experiments",
     "lz4_flex_tpu_torch.experiments.fire_probe",
     "lz4_flex_tpu_torch.experiments.gather_probe",
+    "lz4_flex_tpu_torch.experiments.plane_time",
     "lz4_flex_tpu_torch.frame",
+    "lz4_flex_tpu_torch.frame.decoder",
     "lz4_flex_tpu_torch.frame.device",
+    "lz4_flex_tpu_torch.frame.encoder",
     "lz4_flex_tpu_torch.frame.errors",
     "lz4_flex_tpu_torch.frame.header",
     "lz4_flex_tpu_torch.models",
@@ -29,7 +32,12 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch.ops",
     "lz4_flex_tpu_torch.ops._kernels",
     "lz4_flex_tpu_torch.ops.decode",
+    "lz4_flex_tpu_torch.ops.encode",
+    "lz4_flex_tpu_torch.ops.packing",
     "lz4_flex_tpu_torch.ops.ringdecode",
+    "lz4_flex_tpu_torch.parallel",
+    "lz4_flex_tpu_torch.parallel.executor",
+    "lz4_flex_tpu_torch.parallel.pipeline",
     "lz4_flex_tpu_torch.spec",
     "lz4_flex_tpu_torch.spec.constants",
     "lz4_flex_tpu_torch.utils",
@@ -71,17 +79,30 @@ def test_every_port_module_is_listed():
 
 
 def test_entry_points_without_device_raise_when_no_card(monkeypatch):
+    import io
+
     from lz4_flex_tpu import block, frame
-    from lz4_flex_tpu_torch.frame import decompress_frame_device
-    from lz4_flex_tpu_torch.models import LZ4Codec
+    from lz4_flex_tpu_torch.frame import (
+        BlockSize,
+        FrameDecoder,
+        FrameEncoder,
+        FrameInfo,
+        compress_frame_device,
+        decompress_frame_device,
+    )
+    from lz4_flex_tpu_torch.models import CodecConfig, LZ4Codec
+    from lz4_flex_tpu_torch.ops import encode as E
     from lz4_flex_tpu_torch.ops import ringdecode as R
     from lz4_flex_tpu_torch.ops.decode import decode_block_device
+    from lz4_flex_tpu_torch.ops.encode import compress_block_hybrid
+    from lz4_flex_tpu_torch.parallel.pipeline import encode_blocks
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = b"hello hello hello " * 100
     comp = block.compress(data)
     f = frame.compress(data)
-    before = dict(R.stats)
+    before = dict(R.stats), dict(E.stats)
+    big = FrameInfo(block_size=BlockSize.Max1MB)
     for call in (
         lambda: decode_block_device(comp, len(data)),
         lambda: decompress_frame_device(f),
@@ -89,10 +110,20 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         lambda: LZ4Codec().decompress_block(comp, len(data)),
         lambda: R.decode_parts_ring([(comp, True)]),
         lambda: decode_block_device(comp, len(data), device="cuda"),
+        lambda: FrameDecoder(io.BytesIO(f), engine="device").read_all(),
+        lambda: FrameEncoder(io.BytesIO(), big, engine="device").write(data),
+        lambda: compress_block_hybrid(data),
+        lambda: compress_block_hybrid(data, device="cuda"),
+        lambda: compress_frame_device(data, big),
+        lambda: encode_blocks(data, 1 << 20),
+        lambda: LZ4Codec(CodecConfig(block_size=BlockSize.Max1MB)).compress(data),
+        lambda: LZ4Codec().compress(data),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    assert R.stats == before
+    assert (R.stats, E.stats) == before
+    # the host engines need no card
+    assert FrameDecoder(io.BytesIO(f)).read_all() == data
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

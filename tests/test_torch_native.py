@@ -43,6 +43,41 @@ def test_dict_encode_decode_equal():
     assert block.decompress_with_dict(comp, len(data), dic[-65536:]) == data
 
 
+def test_streaming_encode_with_carried_table_equal():
+    # A linked stream the way a frame encoder drives it: the window lives in
+    # data[:input_pos], the table carries across blocks, and stream offsets
+    # grow past the window.
+    data = word_soup(400000, seed=8)
+    tables = native.new_table(), ref_native.new_table()
+    window, pos = b"", 0
+    for blk in (data[i : i + 65536] for i in range(0, len(data), 65536)):
+        arr = np.frombuffer(window + blk, np.uint8)
+        kw = dict(input_pos=len(window), input_stream_offset=pos - len(window), use_hash5=True)
+        got = native.compress_block(arr, table=tables[0], **kw)
+        assert got == ref_native.compress_block(arr, table=tables[1], **kw)
+        np.testing.assert_array_equal(tables[0], tables[1])
+        assert native.decompress_block(got, len(blk), window) == blk
+        pos += len(blk)
+        window = (window + blk)[-65536:]
+
+
+@pytest.mark.parametrize("table", [np.zeros(10, np.uint64), np.zeros(4096, np.uint32),
+                                   np.zeros((2, 4096), np.uint64)[:, 0]])
+def test_compress_block_rejects_a_bad_table(table):
+    with pytest.raises(ValueError, match="table"):
+        native.compress_block(word_soup(30000, seed=6), table=table)
+
+
+def test_compress_block_from_input_pos_equal():
+    # a block encoded after its window, with a fresh table and each hash width
+    data = word_soup(90000, seed=7)
+    for use_hash5 in (False, True):
+        kw = dict(input_pos=65536, input_stream_offset=0, use_hash5=use_hash5)
+        got = native.compress_block(data, **kw)
+        assert got == ref_native.compress_block(data, **kw)
+        assert native.decompress_block(got, len(data) - 65536, data[:65536]) == data[65536:]
+
+
 @pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 1000, 65537])
 def test_xxh32_equal(n):
     data = word_soup(n, seed=n) if n else b""
