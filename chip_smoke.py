@@ -19,8 +19,9 @@ Phases (any failure raises and the exit code is not 0):
    with a content checksum), and through ``ring_decode(..., ntot=...)`` as
    an on-device consumer. Each path runs with the launch counters set to 0
    just before it and read just after: the kernel must have run and no plan
-   may have overflowed to the host decoder. Each frame's plan is then held
-   against the plain version as in phase 2.
+   may have overflowed (``overflow_fused_decodes`` and ``overflow_splits``
+   stay 0). Each frame's plan is then held against the plain version as in
+   phase 2.
 4. Times on the 10 MiB plan, each line with the card's name and power limit:
    plan build, upload, kernel (CUDA events, median; warm and with a cold L2),
    end to end, the plain version and the native host decoder; K1 and the
@@ -37,7 +38,7 @@ Phases (any failure raises and the exit code is not 0):
    3's two frames, a legacy frame of 8 MiB blocks and a concatenation of two
    frames, each byte-exact, with K1 launched once per batch (the batches
    counted from the frame by the decoder's budgets) and no overflow (no
-   host decode, no split batch); its time beside ``decompress_frame_device``
+   fused decode, no split batch); its time beside ``decompress_frame_device``
    and the host engine's. The first batch's plan of the 64 KiB and the
    legacy frame (the shapes this path launches) is held against the plain
    version as in phase 2.
@@ -49,6 +50,22 @@ Phases (any failure raises and the exit code is not 0):
    decoders, with the plane counter set to 0 before each; stage times
    (plane quad and its sort, upload, plane copy to the host, chunk walks,
    stitch) and end to end beside ``native.compress_block``.
+8. Fallback decode engines (torch ops, the ring path's overflow fallback):
+   on phase 2's six blocks, its linked and dict-prefixed bodies and the
+   first MiB of the 10 MiB soup, the v1 and v2 expansions, v2's three
+   stages, the doubling parse and ``decode_parts_fused`` on the card held
+   bit-equal to the same functions on the CPU. On the 10 MiB soup,
+   byte-exact: ``decode_block_device(parse="host")`` with v1 and v2 and
+   ``parse="device"``, ``decode_parts_fused`` on phase 3's two frame bodies
+   and ``LZ4Codec.decode_step`` on a batch of 32 blocks of 64 KiB, with no
+   K1 launch; stage times (map build, resolution, materialization, parse)
+   and end to end beside the ring engine and the native host decoder. The
+   walk and strided parses on one 64 KiB block, timed and held against the
+   doubling parse and their CPU run. Then a one-step NFMAX ladder forces
+   every plan to overflow: ``decode_block_device`` without and with a
+   dictionary, ``decompress_frame_device`` and a one-block
+   ``FrameDecoder`` batch must each decode byte-exact through one fused
+   decode, with no K1 launch and the host decoder refusing every call.
    Then one JSON line ``{"kernels": ...}`` whose ``max_abs_err`` covers every
    comparison and whose K1 launches count every path of phases 3, 6 and 7.
 
@@ -90,9 +107,13 @@ def main() -> None:
     from lz4_flex_tpu_torch.frame.header import BlockInfo, BlockInfoKind, BlockMode, BlockSize, FrameInfo
     from lz4_flex_tpu_torch.models import CodecConfig, LZ4Codec
     from lz4_flex_tpu_torch.ops import _kernels, packing
+    from lz4_flex_tpu_torch.ops import decode as D
     from lz4_flex_tpu_torch.ops import encode as E
+    from lz4_flex_tpu_torch.ops import expand2 as X
+    from lz4_flex_tpu_torch.ops import parse as P
     from lz4_flex_tpu_torch.ops import ringdecode as R
     from lz4_flex_tpu_torch.ops.decode import decode_block_device
+    from lz4_flex_tpu_torch.ops.sequences import parse_sequences_host
     from lz4_flex_tpu_torch.spec.constants import LZ4F_LEGACY_MAGIC_NUMBER
     from lz4_flex_tpu_torch.utils.checksum import xxh32
 
@@ -256,7 +277,7 @@ def main() -> None:
         launches["ring_decode"] += s["kernel_launches"] - s["checksum_launches"]
         launches["ring_decode+checksum"] += s["checksum_launches"]
         print(f"  {label:44s} ok, counts {s}", flush=True)
-        if s["kernel_launches"] == 0 or s["overflow_host_decodes"] or s["overflow_splits"]:
+        if s["kernel_launches"] == 0 or s["overflow_fused_decodes"] or s["overflow_splits"]:
             raise SystemExit(f"chip_smoke: {label} did not run through the kernel: {s}")
         return s
 
@@ -611,6 +632,223 @@ def main() -> None:
     codec_ms = host_ms(lambda: LZ4Codec(cfg4).compress(data), 3)
     print(f"  LZ4Codec.compress (4 MiB linked) {codec_ms:.3f} ms = "
           f"{n / MIB / (codec_ms / 1e3):.1f} MiB/s, ratio {len(f_codec) / n:.4f} [{card}]")
+
+    # ---- 8. fallback decode engines ------------------------------------------------
+    print(f"phase 8: fallback decode engines (torch ops; tolerance: bit-exact against the same "
+          f"functions on the CPU, byte-exact against the data) [{card}]", flush=True)
+    t_phase8 = time.perf_counter()
+
+    def engine_inputs(c: bytes):
+        """One block's inputs to the engines, padded as the entry points
+        pad them: (table, out_pad, nseq_pad, words, tables, payload padded
+        for the parse)."""
+        cu8 = np.frombuffer(c, np.uint8)
+        seq = parse_sequences_host(cu8)
+        out_pad = packing.size_bucket(max(seq.total_out, 4))
+        nseq_pad = packing.size_bucket(max(seq.nseq, 4), minimum=256)
+        tables = [packing.pad_to(seq.out_off, nseq_pad, fill=out_pad),
+                  packing.pad_to(seq.lit_start, nseq_pad), packing.pad_to(seq.lit_len, nseq_pad),
+                  packing.pad_to(seq.match_off, nseq_pad, fill=1)]
+        words = D._pack_host(cu8, packing.size_bucket(max(len(c), 4)))
+        return seq, out_pad, nseq_pad, words, tables, packing.pad_to(cu8, packing.size_bucket(len(c) + 1))
+
+    def on_both(fn, arrays, *args, **kw):
+        """``fn`` on the card and on the CPU over the same numpy inputs."""
+        got = fn(*(torch.from_numpy(a.copy()).cuda() for a in arrays), *args, **kw)
+        want = fn(*(torch.from_numpy(a.copy()) for a in arrays), *args, **kw)
+        return got, want
+
+    def err(got, want) -> int:
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        return max(int((g.cpu().long() - w.long()).abs().max()) if w.numel() else 0
+                   for g, w in pairs)
+
+    no_dict = np.zeros(1, np.int32)
+    eng_err = 0
+    for label, blk in [*blocks.items(), ("10 MiB soup, first MiB", data[:MIB])]:
+        c = native.compress_block(blk)
+        seq, out_pad, nseq_pad, words, tables, u8 = engine_inputs(c)
+        total = seq.total_out
+        kw = dict(out_pad=out_pad, has_dict=False)
+        v1 = on_both(D.expand_core, [words, no_dict, *tables], 0, total, **kw)
+        v2 = on_both(X.expand2_core, [words, no_dict, *tables], 0, total, **kw)
+        smap = on_both(X.build_source_map, tables, 0, total, out_pad=out_pad,
+                       comp_pad=words.shape[0] * 4, dict_bytes=0)
+        res = on_both(X.resolve_cells, [smap[1].numpy()], out_pad=out_pad)
+        guarded = np.concatenate([np.zeros(4, np.int32), words, np.zeros(12, np.int32)])
+        mat = on_both(X.materialize_cells, [res[1].numpy(), guarded], out_pad=out_pad, guard_words=4)
+        prs = on_both(P.parse_core, [u8], len(c),
+                      nseq_pad=packing.size_bucket(len(u8) // 3 + 2, minimum=256))
+        errs = [err(*x) for x in (v1, v2, smap, res, mat, prs)]
+        eng_err = max(eng_err, *errs)
+        exact = all(x[0][:total].cpu().numpy().tobytes() == blk for x in (v1, v2, mat))
+        print(f"  {label:28s} {total} bytes, {seq.nseq} sequences: max_abs_err v1/v2/map/resolve/"
+              f"materialize/parse {errs}, bytes {'exact' if exact else 'WRONG'}", flush=True)
+        if not exact:
+            raise SystemExit(f"chip_smoke: an expansion engine decoded {label} wrong")
+    for label, parts, want in (("linked multi-block body", linked_parts, linked_data),
+                               ("dict-prefixed body",
+                                [(dic, False), (native.compress_block(dict_data, dic), True)],
+                                dic + dict_data)):
+        got = D.decode_parts_fused(parts, device="cuda", as_array=True)
+        ref = D.decode_parts_fused(parts, device="cpu", as_array=True)
+        e = err(got, ref)
+        eng_err = max(eng_err, e)
+        same(got.cpu().numpy().tobytes(), want, label)
+        print(f"  decode_parts_fused, {label}: max_abs_err {e}, bytes exact", flush=True)
+    if eng_err:
+        raise SystemExit("chip_smoke: a fallback engine on the card differs from its CPU run")
+
+    def fused_path(label: str, fn, want: bytes) -> float:
+        """One byte-exact run of a fallback path with the counters set to 0
+        (it must not launch K1), then its end-to-end time, median of 3."""
+        for k in R.stats:
+            R.stats[k] = 0
+        got = fn()
+        torch.cuda.synchronize()
+        s = dict(R.stats)
+        same(got if isinstance(got, bytes) else got.cpu().numpy().tobytes(), want, label)
+        if s["kernel_launches"]:
+            raise SystemExit(f"chip_smoke: {label} launched the ring kernel: {s}")
+        ms = host_ms(lambda: (fn(), torch.cuda.synchronize()), 3)
+        print(f"  {label:52s} {ms:.3f} ms = {len(want) / MIB / (ms / 1e3):.1f} MiB/s [{card}]",
+              flush=True)
+        return ms
+
+    fallback_ms = {}
+    for engine in ("v1", "v2"):
+        fallback_ms[f"parse=host {engine}"] = fused_path(
+            f"decode_block_device(parse='host', engine='{engine}')",
+            lambda: decode_block_device(comp, n, parse="host", engine=engine), data)
+    fallback_ms["parse=device v2"] = fused_path(
+        "decode_block_device(parse='device') (doubling, v2)",
+        lambda: decode_block_device(comp, n, parse="device"), data)
+    for label, ((f, parts), linked, cfg) in frames.items():
+        fused_path(f"decode_parts_fused ({label.split(',')[0]})",
+                   lambda: D.decode_parts_fused(parts, independent=not linked,
+                                                max_block_size=cfg.block_size.get_size()), data)
+    step_blocks = [data[i : i + 65536] for i in range(0, 32 * 65536, 65536)]
+    step_parts = [native.compress_block(b) for b in step_blocks]
+    width = packing.size_bucket(max(len(p) for p in step_parts) + 1)
+    rows = np.zeros((len(step_parts), width), np.uint8)
+    for i, p in enumerate(step_parts):
+        rows[i, : len(p)] = np.frombuffer(p, np.uint8)
+    cfg64 = CodecConfig(block_size=BlockSize.Max64KB)
+
+    def decode_step():
+        out, total, flags = LZ4Codec(cfg64).decode_step(rows, [len(p) for p in step_parts])
+        if bool(flags.any()) or total.tolist() != [len(b) for b in step_blocks]:
+            raise SystemExit(f"chip_smoke: decode_step on valid blocks: lengths {total.tolist()}, "
+                             f"flags {flags.nonzero().tolist()}")
+        return b"".join(out[i, : len(b)].cpu().numpy().tobytes() for i, b in enumerate(step_blocks))
+
+    fused_path(f"LZ4Codec.decode_step ({len(step_parts)} blocks of 64 KiB)", decode_step,
+               b"".join(step_blocks))
+
+    # stage times of the v2 engine and the doubling parse on the 10 MiB soup
+    seq, out_pad, nseq_pad, words, tables, u8 = engine_inputs(comp)
+    cw, tb, cu = (torch.from_numpy(words).cuda(), [torch.from_numpy(t).cuda() for t in tables],
+                  torch.from_numpy(u8).cuda())
+    smap = X.build_source_map(*tb, 0, n, out_pad=out_pad, comp_pad=cw.shape[0] * 4, dict_bytes=0)
+    res = X.resolve_cells(smap, out_pad=out_pad)
+    wg = torch.cat([cw.new_zeros(4), cw, cw.new_zeros(12)])
+    pad = u8.shape[0]
+    parse_pad = packing.size_bucket(pad // 3 + 2, minimum=256)
+    stage = {
+        "map build": kernel_ms(lambda: X.build_source_map(
+            *tb, 0, n, out_pad=out_pad, comp_pad=cw.shape[0] * 4, dict_bytes=0), iters=5, warmup=1),
+        "resolution": kernel_ms(lambda: X.resolve_cells(smap, out_pad=out_pad), iters=5, warmup=1),
+        "materialization": kernel_ms(lambda: X.materialize_cells(res, wg, out_pad=out_pad,
+                                                                 guard_words=4), iters=5, warmup=1),
+        "expand2_core": kernel_ms(lambda: X.expand2_core(cw, cw[:1], *tb, 0, n, out_pad=out_pad,
+                                                         has_dict=False), iters=5, warmup=1),
+        "expand_core (v1)": kernel_ms(lambda: D.expand_core(cw, cw[:1], *tb, 0, n, out_pad=out_pad,
+                                                            has_dict=False), iters=5, warmup=1),
+        "parse_core": kernel_ms(lambda: P.parse_core(cu, len(comp), nseq_pad=parse_pad),
+                                iters=5, warmup=1),
+        "decode_resident_core (doubling, v2)": kernel_ms(lambda: D.decode_resident_core(
+            cu, len(comp), out_pad=out_pad, nseq_pad=parse_pad), iters=5, warmup=1),
+    }
+    table_bytes = 4 * 4 * seq.nseq  # out_off, lit_start, lit_len, match_off
+    bound = {  # each input read once, each output written once, over the HBM rate
+        "expand": (len(comp) + table_bytes + n) / FP.HBM_BYTES_PER_S * 1e3,
+        "parse": (len(comp) + 5 * 4 * seq.nseq) / FP.HBM_BYTES_PER_S * 1e3,
+        "resident": (len(comp) + n) / FP.HBM_BYTES_PER_S * 1e3,
+    }
+    print(f"  stage times on the 10 MiB soup ({seq.nseq} sequences; CUDA events around each call, "
+          f"its host reads of device scalars included, median of 5): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stage.items()) + f" [{card}]")
+    device_busy(lambda: X.expand2_core(cw, cw[:1], *tb, 0, n, out_pad=out_pad, has_dict=False),
+                "expand2_core (10 MiB soup)", top=6)
+    device_busy(lambda: P.parse_core(cu, len(comp), nseq_pad=parse_pad), "parse_core (10 MiB soup)",
+                top=6)
+    print(f"  bytes bounds: expansion {bound['expand']:.5f} ms, parse {bound['parse']:.5f} ms, "
+          f"resident decode {bound['resident']:.5f} ms; beside the ring engine's "
+          f"decode_block_device {e2e_ms:.3f} ms and the native host decoder {host_dec_ms:.3f} ms "
+          f"(phase 4) [{card}]", flush=True)
+
+    # the walk and strided parses on one 64 KiB block
+    blk = parts64[0][0]
+    wu8 = packing.pad_to(np.frombuffer(blk, np.uint8), packing.size_bucket(len(blk) + 1))
+    wpad = packing.size_bucket(wu8.shape[0] // 3 + 2, minimum=256)
+    walk = on_both(P.parse_walk_core, [wu8], len(blk), nseq_pad=wpad)
+    dbl = P.parse_core(torch.from_numpy(wu8).cuda(), len(blk), nseq_pad=wpad)
+    stride = [on_both(P.parse_strided_core, [wu8], len(blk), lanes=k) for k in (4, 8)]
+    walk_err = max(err(*walk), err(walk[0], tuple(t.cpu() for t in dbl)), *(err(*x) for x in stride))
+    wcu = torch.from_numpy(wu8).cuda()
+    walk_ms = kernel_ms(lambda: P.parse_walk_core(wcu, len(blk), nseq_pad=wpad), iters=3, warmup=1)
+    dbl_ms = kernel_ms(lambda: P.parse_core(wcu, len(blk), nseq_pad=wpad), iters=3, warmup=1)
+    str_ms = kernel_ms(lambda: P.parse_strided_core(wcu, len(blk), lanes=8), iters=3, warmup=1)
+    wbound = (len(blk) + 5 * 4 * int(walk[1][5])) / FP.HBM_BYTES_PER_S * 1e3
+    print(f"  64 KiB block ({int(walk[1][5])} sequences): parse_walk_core {walk_ms:.3f} ms, "
+          f"parse_strided_core (8 lanes) {str_ms:.3f} ms, parse_core {dbl_ms:.3f} ms, bytes bound "
+          f"{wbound:.6f} ms; walk and strided against their CPU run and the walk against the "
+          f"doubling parse: max_abs_err {walk_err} [{card}]", flush=True)
+    if walk_err:
+        raise SystemExit("chip_smoke: the walk or strided parse differs")
+
+    # forced overflow: every ring plan overflows; each decode must take one
+    # fused decode on the card, and the host decoder refuses every call
+    def refuse(*a, **kw):
+        raise SystemExit("chip_smoke: a device path decoded on the host")
+
+    def compress_with_dict(raw: bytes, dictionary: bytes) -> bytes:
+        table = native.new_table()
+        native.compress_block(dictionary, table=table)
+        return native.compress_block(dictionary + raw, input_pos=len(dictionary),
+                                     input_stream_offset=0, table=table)
+
+    saved = (R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0], native.decompress_block)
+    dict1, d1 = data[:65536], data[65536 : 65536 + MIB]
+    dcomp1 = compress_with_dict(d1, dict1)
+    c1 = native.compress_block(d1)
+    f1 = F.compress(d1, FrameInfo(block_size=BlockSize.Max64KB))
+    fone = F.compress(d1[:65536], FrameInfo(block_size=BlockSize.Max64KB))
+    R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0], native.decompress_block = (1,), 1, 1, refuse
+    try:
+        for label, fn, want in (
+            ("decode_block_device", lambda: decode_block_device(c1, len(d1)), d1),
+            ("decode_block_device with a dictionary",
+             lambda: decode_block_device(dcomp1, len(d1), dict1), d1),
+            ("decompress_frame_device (64 KiB blocks)", lambda: decompress_frame_device(f1), d1),
+            ("FrameDecoder device, one-block batch",
+             lambda: F.FrameDecoder(io.BytesIO(fone), engine="device").read_all(), d1[:65536]),
+        ):
+            for k in R.stats:
+                R.stats[k] = 0
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            s = dict(R.stats)
+            same(got, want, f"forced overflow, {label}")
+            print(f"  forced overflow, {label:40s} byte-exact, {ms:.3f} ms, counts {s} [{card}]",
+                  flush=True)
+            if s["overflow_fused_decodes"] != 1 or s["kernel_launches"]:
+                raise SystemExit(f"chip_smoke: forced overflow, {label}: {s}")
+    finally:
+        R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0], native.decompress_block = saved
+    print(f"  phase 8 took {time.perf_counter() - t_phase8:.1f} s", flush=True)
 
     main = results[R.TILE_ROWS]
     kernels = [

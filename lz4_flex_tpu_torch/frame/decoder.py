@@ -18,10 +18,11 @@ is dispatched without synchronizing, and the host reads and plans batch i+1
 while the card decodes batch i; only ``_flush_pending`` brings a batch back.
 Linked batches decode synchronously, the carried window riding ahead of them
 as a stored pseudo-block. A batch whose plan overflows its static shape is
-split into smaller plans, each launched on the card; a single block that
-overflows raises NotImplementedError. No batch decodes on the host.
-``device=None`` means the CUDA card; ``device="cpu"`` runs the kernel's
-plain PyTorch version.
+split into smaller plans, each launched on the card; a single block whose
+plan overflows decodes through the expansion engine on the card
+(ops/decode.py:decode_parts_fused). No batch decodes on the host.
+``device=None`` means the CUDA card; ``device="cpu"`` runs the kernel's and
+the expansion engine's plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -52,18 +53,10 @@ def _fetch(pieces) -> bytes:
 
 
 def _split_overflow(nblocks: int) -> int:
-    """Where to split a batch whose ring plan overflows its static shape:
-    counted in ``ringdecode.stats["overflow_splits"]``. A single block that
-    overflows raises, because the engine that would decode it on the card
-    is not ported."""
+    """Where to split a batch of several blocks whose ring plan overflows
+    its static shape: counted in ``ringdecode.stats["overflow_splits"]``."""
     from ..ops import ringdecode
 
-    if nblocks == 1:
-        raise NotImplementedError(
-            "the ring plan of a single block overflows its static shape; decoding it on "
-            "the card needs the fallback decode engine (ROADMAP item 5), which is not "
-            "ported yet"
-        )
     ringdecode.stats["overflow_splits"] += 1
     return nblocks // 2
 
@@ -228,12 +221,30 @@ class FrameDecoder(io.RawIOBase):
         except DecompressError as e:
             raise errors.DecompressionError(e) from e
 
+    def _fused(self, parts, independent: bool):
+        """Decode a body whose ring plan overflows, one block (after its
+        window in linked mode), through the expansion engine on the card:
+        (flat device tensor, total), not fetched. Counted in
+        ``ringdecode.stats["overflow_fused_decodes"]``."""
+        from ..ops import decode, ringdecode
+
+        ringdecode.stats["overflow_fused_decodes"] += 1
+        try:
+            out = decode.decode_parts_fused(parts, independent=independent,
+                                            device=self._device, as_array=True)
+        except DecompressError as e:
+            raise errors.DecompressionError(e) from e
+        return out, out.shape[0]
+
     def _dispatch_parts_device(self, parts, sizes) -> list:
         """Launch K1 on an independent-mode batch without fetching: the
         (flat device tensor, total) pieces in order, one per plan. A batch
         whose plan overflows is split in two (``_split_overflow``) and each
-        half planned again; the card decodes it either way."""
+        half planned again; a single block whose plan overflows takes the
+        expansion engine. The card decodes it either way."""
         r = self._dispatch(parts, sizes, True)
+        if r is None and len(parts) == 1:
+            r = self._fused(parts, True)
         if r is not None:
             return [r]
         h = _split_overflow(len(parts))
@@ -245,11 +256,14 @@ class FrameDecoder(io.RawIOBase):
         window rides ahead as a stored pseudo-block, so window references
         resolve through the kernel's ring, and is sliced off. A batch whose
         plan overflows is split in two, the second half's window taken from
-        the first half's output."""
+        the first half's output; a single block whose plan overflows takes
+        the expansion engine, its window ahead of it as here."""
         full, fsizes = parts, sizes
         if window:
             full, fsizes = [(window, False), *parts], [len(window), *sizes]
         r = self._dispatch(full, fsizes, False)
+        if r is None and len(parts) == 1:
+            r = self._fused(full, False)
         if r is not None:
             out, total = r
             return _fetch([(out[len(window) :], total - len(window))])

@@ -6,7 +6,10 @@ whole input: its blocks go through the hybrid encoder on the card
 dictionary being the 64 KiB of input before it.
 
 Decode: every frame body in ``data`` goes through the ring decoder as one
-plan (ops/ringdecode.py: decode_parts_ring), linked or independent.
+plan (ops/ringdecode.py: decode_parts_ring), linked or independent; a body
+whose plan overflows its static shape goes through the expansion engine on
+the same device instead (ops/decode.py: decode_parts_fused), counted in
+``ringdecode.stats["overflow_fused_decodes"]``.
 
 The frame walk, header and checksum handling match the reference's wire
 format: descriptor, BlockInfo words with the stored-block fallback, optional
@@ -66,8 +69,9 @@ def decompress_frame_device(data, *, device=None) -> bytes:
     """Decompress every concatenated frame in ``data`` on the device.
 
     ``device=None`` means the CUDA card; ``device="cpu"`` runs the ring
-    kernel's plain PyTorch version."""
-    from ..ops.ringdecode import decode_parts_ring, resolve_device
+    kernel's and the expansion engine's plain PyTorch versions."""
+    from ..ops.decode import decode_parts_fused
+    from ..ops.ringdecode import decode_parts_ring, resolve_device, stats
 
     dev = resolve_device(device)
     data = bytes(data)
@@ -137,6 +141,11 @@ def decompress_frame_device(data, *, device=None) -> bytes:
             out = decode_parts_ring(
                 parts, independent=independent, max_block_size=max_block_size, device=dev
             )
+            if out is None:
+                stats["overflow_fused_decodes"] += 1
+                out = decode_parts_fused(
+                    parts, independent=independent, max_block_size=max_block_size, device=dev
+                )
         except DecompressError as e:
             raise errors.DecompressionError(e) from e
 

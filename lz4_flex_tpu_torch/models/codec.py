@@ -2,10 +2,12 @@
 
 Bundles the frame wire format (frame/) and the device codec (ops/) behind
 one object: a configuration (block size and mode, checksums — the
-reference's FrameInfo setters, src/frame/header.rs:130-192) and the
-byte-level methods. The batched array steps (``encode_step`` and
-``decode_step``) and ``compress_block`` come with the all-device encoder and
-the fallback decode engines (ROADMAP items 6 and 8).
+reference's FrameInfo setters, src/frame/header.rs:130-192), the
+byte-level methods (``compress``, ``decompress``, ``decompress_block``) and
+the batched array step ``decode_step`` (device-resident decode of
+independent blocks: tensors in, tensors out, for embedding in a larger
+device pipeline). ``encode_step`` and ``compress_block`` come with the
+all-device encoder (ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ..frame.header import BlockMode, BlockSize, FrameInfo
+from ..ops import packing
 
 
 @dataclass
@@ -60,3 +63,26 @@ class LZ4Codec:
         from ..ops.decode import decode_block_device
 
         return decode_block_device(data, max_output_size, ext_dict, device=self.device)
+
+    def decode_step(self, comp_bytes, comp_lens):
+        """Batched independent-block decode on the codec's device: (B, C)
+        uint8 payload rows and (B,) lengths -> ((B, S) uint8 outputs, (B,)
+        int32 lengths, (B, 5) bool error flags [literal_oob, truncated,
+        offset_zero, offset_oob, output_too_small]), S the size bucket of the
+        configured block size. Tensors (or arrays) go to the device; the
+        outputs stay there.
+
+        Contract: C must exceed every comp_len by at least one zero byte
+        (truncation detection for blocks ending mid-LSIC run)."""
+        import torch
+
+        from ..ops.ringdecode import resolve_device
+        from ..parallel.pipeline import _decode_batch
+
+        dev = resolve_device(self.device)
+        rows = torch.as_tensor(comp_bytes, dtype=torch.uint8).to(dev)
+        lens = torch.as_tensor(comp_lens, dtype=torch.int32).to(dev)
+        width = rows.shape[1]
+        out_pad = packing.size_bucket(self.config.block_size.get_size())
+        nseq_pad = packing.size_bucket(max(8, width // 3 + 2), minimum=256)
+        return _decode_batch(rows, lens, out_pad=out_pad, nseq_pad=nseq_pad)

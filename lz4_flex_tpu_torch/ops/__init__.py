@@ -4,13 +4,26 @@ Modules:
   ringdecode — host pull planner, plan upload, and the ring kernel's
                wrapper with its plain PyTorch version
   _kernels   — build and ctypes binding of the CUDA sources in csrc/
-  decode     — block decode entry point (``parse="ring"``)
+  decode     — block decode entry point (``parse="ring"``, "host",
+               "device"), the v1 expansion, the frame-body and resident
+               decodes
+  expand2    — the v2 (fragment-cell) expansion engine
+  parse      — the on-device speculative parse
+  sequences  — the sequence-table interchange format and host parsers
   encode     — the hybrid block encoder: device candidate planes (torch
                ops) and the native host walk
-  packing    — shape buckets and padding
+  packing    — shape buckets, padding, byte/scan/scatter helpers
 """
 
+from . import packing, sequences
 from .decode import decode_block_device
 from .encode import compress_block_hybrid
+from .parse import parse_sequences_device
 
-__all__ = ["compress_block_hybrid", "decode_block_device"]
+__all__ = [
+    "packing",
+    "sequences",
+    "compress_block_hybrid",
+    "decode_block_device",
+    "parse_sequences_device",
+]

@@ -1,17 +1,317 @@
-"""Device block decode: the ``parse="ring"`` engine.
+"""Device block decode: the ring engine and the sequence-expansion engines.
 
-The native size walk measures the block (raising the structural errors of
-the checked-decode error set, lz4_flex src/block/mod.rs:82-98), the native
-planner turns it into a ring plan while it checks every match offset against
-the output so far, and the ring kernel (ops/ringdecode.py) decodes the plan
-on the card.
+``parse="ring"`` (the default): the native size walk measures the block
+(raising the structural errors of the checked-decode error set, lz4_flex
+src/block/mod.rs:82-98), the native planner turns it into a ring plan while
+it checks every match offset against the output so far, and the ring kernel
+(ops/ringdecode.py) decodes the plan on the card. A block whose plan
+overflows its static shape decodes on the same device through the expansion
+engine below, counted in ``ringdecode.stats["overflow_fused_decodes"]``.
+
+The expansion engines (the JAX package's ``jnp`` programs, here torch ops on
+the caller's device, bit-equal to them) invert the reference's sequential
+token walk (src/block/decompress.rs:201-444) into vectorized stages over the
+whole output:
+
+  1. attribution: each sequence's deltas are scattered at its output offset
+     and summed forward, giving every output byte its source in O(n);
+  2. source resolution: a literal byte's source lies in the compressed
+     stream, a match byte's at an earlier *output* position; match chains
+     (matches of matches, and self-overlapping RLE runs) collapse by pointer
+     doubling, s <- s[s], chains of depth 2^r after r rounds;
+  3. materialization: one byte gather from the compressed stream (and the
+     dictionary, when present).
+
+``expand_core`` is v1 (per-byte doubling); ``ops/expand2.py:expand2_core``
+is v2 (fragment cells, the default). ``parse="host"`` feeds them the native
+parser's sequence table, ``parse="device"`` the on-device parse of
+ops/parse.py; ``decode_resident_core`` fuses the device parse and an
+expansion with input and output on the device.
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
+import torch
+
 from .. import native as _native
 from ..block import errors as block_errors
-from .ringdecode import decode_block_ring, decode_parts_ring, resolve_device
+from . import packing
+from .ringdecode import decode_block_ring, decode_parts_ring, resolve_device, stats
+from .sequences import SeqTable, parse_sequences_host
+
+_MAX_DOUBLING_ROUNDS = 40  # chains deeper than 2^40 bytes cannot exist
+
+
+def expand_core(
+    comp_words: torch.Tensor,  # (COMP_PAD/4,) int32 words of the compressed bytes
+    dict_words: torch.Tensor,  # (DICT_PAD/4,) int32 words of the dictionary
+    seq_oo: torch.Tensor,  # (NSEQ_PAD,) int32 output offset per sequence
+    seq_ls: torch.Tensor,  # (NSEQ_PAD,) int32 literal start (compressed pos)
+    seq_ll: torch.Tensor,  # (NSEQ_PAD,) int32 literal length
+    seq_mo: torch.Tensor,  # (NSEQ_PAD,) int32 match offset
+    dict_len,  # int or () int32 tensor
+    total_out,  # int or () int32 tensor
+    *,
+    out_pad: int,
+    has_dict: bool,
+) -> torch.Tensor:
+    """The v1 expansion: (out_pad,) uint8 on the tables' device; see the
+    module docstring for the three stages."""
+    dev = seq_oo.device
+    comp_pad = comp_words.shape[0] * 4
+    pout = torch.arange(out_pad, dtype=torch.int32, device=dev)
+
+    # Stages 1+2 fused: the per-byte source map is piecewise affine in the
+    # output position: on a literal segment s(p) = -(p + C_i + 1) with
+    # C_i = lit_start_i - out_off_i, on a match segment s(p) = p - off_i.
+    # So one piecewise-constant value array V (C_i on literal segments,
+    # off_i on match segments) and one segment flag F rebuild s from two
+    # sparse scatter-adds of per-sequence deltas and two cumulative sums.
+    off_i = seq_mo.clamp(min=1)  # sanitized: offset 0 would never resolve
+    c_i = seq_ls - seq_oo
+    prev_off = torch.cat([off_i.new_zeros(1), off_i[:-1]])
+    lit_starts = seq_oo  # padding seqs carry out_off == out_pad -> dropped
+    match_starts = (seq_oo + seq_ll).clamp(0, out_pad)
+    zeros = torch.zeros(out_pad, dtype=torch.int32, device=dev)
+
+    V = packing.scatter_drop(zeros, lit_starts, c_i - prev_off, "add")
+    V = packing.scatter_drop(V, match_starts, off_i - c_i, "add")
+    V = packing.tiled_cumsum(V)
+
+    F = packing.scatter_drop(zeros, lit_starts, 1, "add")
+    F = packing.scatter_drop(F, match_starts, -1, "add")
+    F = packing.tiled_cumsum(F)
+
+    is_lit = F > 0
+    lit_k = pout + V  # = lit_start + (p - out_off)
+    msrc = pout - V  # = p - offset
+    dict_k = comp_pad + (dict_len + msrc).clamp(0, dict_words.shape[0] * 4 - 1)
+    s = torch.where(is_lit, -(lit_k + 1), torch.where(msrc >= 0, msrc, -(dict_k + 1)))
+    s = torch.where(pout < total_out, s, -1)
+
+    # Pointer doubling: two dense rounds collapse chains of depth <= 4, then
+    # the surviving positions (typically a few percent) are compacted into a
+    # small workset and chased there, or, if the workset overflows, over the
+    # whole map. One device scalar is read a round.
+    def dense_round(s):
+        g = s[s.clamp(0, out_pad - 1)]
+        return torch.where(s >= 0, g, s)
+
+    s = dense_round(dense_round(s))
+
+    un_pad = max(4096, out_pad // 8)
+    mask = s >= 0
+    cnt = int(mask.sum())
+    rank = packing.tiled_cumsum(mask.to(torch.int32)) - 1
+    # Sentinel entries point at position 0 (always resolved: position 0 has
+    # no earlier output to copy from); their write-back is a no-op.
+    uidx = packing.scatter_drop(
+        torch.zeros(un_pad, dtype=torch.int32, device=dev), torch.where(mask, rank, un_pad), pout)
+
+    active, i = cnt > 0, 0
+    while active and i < _MAX_DOUBLING_ROUNDS:
+        if cnt <= un_pad:
+            su = s[uidx]
+            g = s[su.clamp(0, out_pad - 1)]
+            new = torch.where(su >= 0, g, su)
+            s = s.clone()
+            s[uidx] = new
+            active = bool((new >= 0).any())
+        else:
+            s = dense_round(s)
+            active = bool((s >= 0).any())
+        i += 1
+
+    # Stage 3: materialize bytes from the resolved sources.
+    k = -s - 1
+    out = packing.gather_bytes(comp_words, k)
+    if has_dict:
+        out = torch.where(k < comp_pad, out, packing.gather_bytes(dict_words, k - comp_pad))
+    return out.to(torch.uint8)
+
+
+def default_expand_engine() -> str:
+    """Expansion engine: "v2" (fragment cells, ops/expand2.py) or "v1"
+    (per-byte doubling, :func:`expand_core`). Override with TLZ4_EXPAND=v1."""
+    return os.environ.get("TLZ4_EXPAND", "v2")
+
+
+def _expand_fn(engine: str | None):
+    if engine is None:
+        engine = default_expand_engine()
+    if engine == "v2":
+        from .expand2 import expand2_core
+
+        return expand2_core
+    if engine == "v1":
+        return expand_core
+    raise ValueError(f"unknown expand engine {engine!r}")
+
+
+def decode_resident_core(
+    u8,
+    clen,
+    *,
+    out_pad,
+    nseq_pad,
+    parse_engine="doubling",
+    capacity=None,
+    expand_engine=None,
+):
+    """Device-resident decode of one independent block: the on-device parse
+    and an expansion, with input and output on ``u8``'s device (compressed
+    bytes feed a device pipeline without a trip to the host). ``u8`` is the
+    payload padded with at least one zero byte, ``clen`` its length (int or
+    () tensor). Returns (out (out_pad,) uint8, total_out, error_flags).
+
+    error_flags is a (5,) bool tensor: [literal_oob, truncated, offset_zero,
+    offset_oob, output_too_small], the checked-decode error set of lz4_flex
+    src/block/mod.rs:82-98 plus the capacity check."""
+    from .parse import parse_core, parse_walk_core
+
+    parse = parse_walk_core if parse_engine == "walk" else parse_core
+    ls, ll, mo, ml, oo, nseq, total, errs = parse(u8, clen, nseq_pad=nseq_pad)
+    real = torch.arange(nseq_pad, dtype=torch.int32, device=u8.device) < nseq
+    # Checked-decode bounds the parse flags cannot see: a match reaching
+    # before the block start (no dict in the resident path) and an output
+    # beyond the static capacity.
+    off_oob = (real & (ml > 0) & (oo + ll - mo < 0)).any()
+    out_oob = total > (out_pad if capacity is None else capacity)
+    errs = torch.cat([errs, torch.stack([off_oob, out_oob])])
+    oo = torch.where(real, oo, out_pad)
+    mo = torch.where(real, mo, 1)
+    out = _expand_fn(expand_engine)(
+        packing.bytes_to_words(u8), torch.zeros(1, dtype=torch.int32, device=u8.device),
+        oo, ls, ll, mo, 0, total, out_pad=out_pad, has_dict=False,
+    )
+    return out, total, errs
+
+
+#: The JAX package's name for the compiled form of the core; torch runs the
+#: same ops eagerly.
+decode_resident = decode_resident_core
+
+
+def _pack_host(buf: np.ndarray, pad: int) -> np.ndarray:
+    """Pad a host uint8 buffer to ``pad`` bytes and view it as int32 words."""
+    out = np.zeros(pad, dtype=np.uint8)
+    out[: buf.shape[0]] = buf
+    return out.view("<i4")
+
+
+def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+
+def expand_on_device(
+    comp: np.ndarray,
+    seq: SeqTable,
+    ext_dict: np.ndarray,
+    engine: str | None = None,
+    *,
+    device=None,
+) -> torch.Tensor:
+    """Run an expansion engine for a host-parsed block; returns the uint8
+    tensor of ``seq.total_out`` bytes on ``device`` (a slice of the padded
+    output). ``device=None`` means the CUDA card."""
+    dev = resolve_device(device)
+    expand = _expand_fn(engine)
+    comp_pad = packing.size_bucket(max(comp.shape[0], 4))
+    out_pad = packing.size_bucket(max(seq.total_out, 4))
+    nseq_pad = packing.size_bucket(max(seq.nseq, 4), minimum=256)
+    has_dict = ext_dict.shape[0] > 0
+    pad_dict = packing.size_bucket(ext_dict.shape[0]) if has_dict else 4
+    out = expand(
+        _upload(_pack_host(comp, comp_pad), dev),
+        _upload(_pack_host(ext_dict, pad_dict), dev),
+        _upload(packing.pad_to(seq.out_off, nseq_pad, fill=out_pad), dev),
+        _upload(packing.pad_to(seq.lit_start, nseq_pad), dev),
+        _upload(packing.pad_to(seq.lit_len, nseq_pad), dev),
+        _upload(packing.pad_to(seq.match_off, nseq_pad, fill=1), dev),
+        int(ext_dict.shape[0]),
+        int(seq.total_out),
+        out_pad=out_pad,
+        has_dict=has_dict,
+    )
+    return out[: seq.total_out]
+
+
+def _validate(seq: SeqTable, dict_len: int, capacity: int) -> None:
+    """Checked-decode validation of a host-parsed sequence table (the error
+    set of lz4_flex src/block/mod.rs:82-98)."""
+    if seq.total_out > capacity:
+        raise block_errors.OutputTooSmall(seq.total_out, capacity)
+    if seq.nseq == 0:
+        return
+    match_start = (
+        seq.out_off.astype(np.int64) + seq.lit_len.astype(np.int64) - seq.match_off.astype(np.int64)
+    )
+    if ((seq.match_len > 0) & (match_start < -int(dict_len))).any():
+        raise block_errors.OffsetOutOfBounds()
+
+
+def _result(out: torch.Tensor, as_array: bool):
+    return out if as_array else out.cpu().numpy().tobytes()
+
+
+def decode_parts_fused(
+    parts,
+    *,
+    as_array: bool = False,
+    independent: bool = False,
+    max_block_size: int | None = None,
+    device=None,
+    engine: str | None = None,
+):
+    """Decode a whole multi-block frame body in ONE device expansion.
+
+    ``parts`` is the frame's block list in order: (payload, is_compressed)
+    pairs (stored blocks pass through as literals). The blocks' sequence
+    tables merge into one global table: output offsets shifted by each
+    block's base, literal starts by each payload's position in the
+    concatenated compressed buffer. A linked-mode window reference
+    (src/frame/decompress.rs:282-292) is then a plain output position, and
+    the pointer doubling resolves the whole body's dependencies at once.
+    Stored blocks become literal-only pseudo-sequences.
+
+    ``independent`` validates each block's matches against its own output
+    only (the reference decodes independent blocks with no dictionary,
+    src/frame/decompress.rs:294-306: a cross-block back-reference raises
+    OffsetOutOfBounds). ``max_block_size`` caps every block's decompressed
+    size. Returns bytes, or a uint8 tensor on ``device`` with ``as_array``;
+    ``device=None`` means the CUDA card.
+    """
+    dev = resolve_device(device)
+    bufs, tables = [], []
+    cbase = obase = 0
+    for payload, is_comp in parts:
+        p = _native.as_u8(payload)
+        if is_comp:
+            seq = parse_sequences_host(p)
+            if independent:
+                # Block-local bounds: matches must stay inside this block.
+                _validate(seq, 0, max_block_size or seq.total_out)
+            elif max_block_size is not None and seq.total_out > max_block_size:
+                raise block_errors.OutputTooSmall(seq.total_out, max_block_size)
+            tables.append((seq.lit_start + cbase, seq.lit_len, seq.match_off, seq.match_len,
+                           seq.out_off + obase))
+            out_len = seq.total_out
+        else:
+            tables.append(tuple(np.array([v], np.int32) for v in (cbase, p.shape[0], 0, 0, obase)))
+            out_len = p.shape[0]
+        bufs.append(p)
+        cbase += p.shape[0]
+        obase += out_len
+    if not bufs:
+        return _result(torch.empty(0, dtype=torch.uint8, device=dev), as_array)
+    comp = np.concatenate(bufs) if len(bufs) > 1 else bufs[0]
+    merged = SeqTable(*(np.concatenate([t[i] for t in tables]) for i in range(5)), obase)
+    _validate(merged, 0, obase)
+    out = expand_on_device(comp, merged, np.empty(0, np.uint8), engine, device=dev)
+    return _result(out, as_array)
 
 
 def decode_block_device(
@@ -22,34 +322,54 @@ def decode_block_device(
     parse: str = "ring",
     device=None,
     as_array: bool = False,
+    engine: str | None = None,
 ):
     """Decompress one raw LZ4 block on the device.
 
-    ``parse="ring"`` (the only engine ported so far) builds the host plan and
-    runs the ring kernel; a dictionary rides as a stored pseudo-block of its
-    last 64 KiB ahead of the payload, resolved through the kernel's linked
-    window, and is sliced off the output. ``device=None`` means the CUDA
-    card; ``device="cpu"`` runs the kernel's plain PyTorch version.
+    ``parse`` selects the engine: "ring" (the default: host plan and the
+    ring kernel; a dictionary rides as a stored pseudo-block of its last
+    64 KiB, resolved through the kernel's linked window and sliced off; a
+    block whose plan overflows its static shape takes the expansion engine
+    on the same device), "host" (the native parser's sequence table feeding
+    an expansion engine) or "device" (the on-device parse, ops/parse.py,
+    feeding it). ``engine`` picks the expansion engine, "v1" or "v2"
+    (default :func:`default_expand_engine`). ``device=None`` means the CUDA
+    card; ``device="cpu"`` runs the kernel's and the engines' plain PyTorch
+    versions.
 
     Returns bytes, or a uint8 tensor on ``device`` when ``as_array`` is true.
     Raises the block error taxonomy on malformed input.
     """
-    if parse in ("host", "device"):
-        raise NotImplementedError(f"parse={parse!r} is not ported yet; use parse='ring'")
-    if parse != "ring":
+    if parse not in ("ring", "host", "device"):
         raise ValueError(f"unknown parse engine {parse!r}")
     dev = resolve_device(device)
     comp = _native.as_u8(data)
     dic = _native.as_u8(ext_dict)
-    if not dic.shape[0]:
+    if parse == "ring":
+        if dic.shape[0]:
+            # Only the dict's last 64 KiB is reachable (LZ4 offsets cap at 65535).
+            dtail = dic[-65536:]
+            parts = [(dtail, False), (comp, True)]
+            out = decode_parts_ring(parts, independent=False, max_block_size=max_output_size,
+                                    device=dev, as_array=as_array)
+            if out is None:
+                stats["overflow_fused_decodes"] += 1
+                out = decode_parts_fused(parts, max_block_size=max_output_size, device=dev,
+                                         as_array=as_array, engine=engine)
+            return out[dtail.shape[0]:]
         total = _native.measure_block(comp)
         if total > max_output_size:
             raise block_errors.OutputTooSmall(total, max_output_size)
-        return decode_block_ring(comp, total, device=dev, as_array=as_array)
-    # Only the dict's last 64 KiB is reachable (LZ4 offsets cap at 65535).
-    dtail = dic[-65536:]
-    out = decode_parts_ring(
-        [(dtail, False), (comp, True)], independent=False,
-        max_block_size=max_output_size, device=dev, as_array=as_array,
-    )
-    return out[dtail.shape[0]:]
+        out = decode_block_ring(comp, total, device=dev, as_array=as_array)
+        if out is not None:
+            return out
+        stats["overflow_fused_decodes"] += 1
+        parse = "host"
+    if parse == "device":
+        from .parse import parse_sequences_device
+
+        seq = parse_sequences_device(comp, device=dev)
+    else:
+        seq = parse_sequences_host(comp)
+    _validate(seq, dic.shape[0], max_output_size)
+    return _result(expand_on_device(comp, seq, dic, engine, device=dev), as_array)

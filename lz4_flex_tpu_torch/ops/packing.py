@@ -1,10 +1,15 @@
-"""Shape buckets and padding for the device programs (the JAX package's
-``ops/packing.py:size_bucket`` and ``pad_to``; its word-packing kernels come
-with the fallback decode engines)."""
+"""Shape buckets, padding, and the byte, scan and scatter helpers of the
+device programs (the JAX package's ``ops/packing.py``).
+
+Words travel as int32 tensors holding the bit patterns of the JAX package's
+little-endian uint32 words: the programs only take bytes out of them with
+arithmetic right shifts and ``& 0xFF``, which read the same bits.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Shape buckets: pad array lengths to the next bucket so that the number of
 # distinct shapes, and the plans of buffers of each, stay small.
@@ -28,3 +33,118 @@ def pad_to(arr: np.ndarray, size: int, fill: int = 0) -> np.ndarray:
     out = np.full(size, fill, dtype=arr.dtype)
     out[: arr.shape[0]] = arr
     return out
+
+
+def bytes_to_words(u8: torch.Tensor) -> torch.Tensor:
+    """Pack a uint8 tensor (length divisible by 4) into little-endian words,
+    as int32 bit patterns."""
+    b = u8.reshape(-1, 4).to(torch.int64)
+    w = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
+    """Unpack little-endian words (int32 bit patterns) into a uint8 tensor."""
+    b = torch.stack([(w >> s) & 0xFF for s in (0, 8, 16, 24)], dim=-1)
+    return b.reshape(-1).to(torch.uint8)
+
+
+def gather_bytes(words: torch.Tensor, byte_idx: torch.Tensor) -> torch.Tensor:
+    """Bytes at ``byte_idx`` of a packed word buffer (int32), the indices
+    clamped to the buffer: a word gather and a shift."""
+    idx = byte_idx.clamp(0, words.shape[0] * 4 - 1)
+    w = words[idx >> 2]
+    return (w >> ((idx & 3) * 8)) & 0xFF
+
+
+def doubling_scan(x: torch.Tensor, fn) -> torch.Tensor:
+    """Inclusive scan along the last dim by log-step doubling (Hillis-Steele)
+    with an associative elementwise ``fn`` (``torch.add``, ``torch.maximum``,
+    ...): ceil(log2(width)) elementwise passes, each reading the previous
+    pass. Exact for integers (an int32 sum wraps)."""
+    x = x.clone()
+    k = 1
+    while k < x.shape[-1]:
+        x[..., k:] = fn(x[..., k:], x[..., :-k])
+        k *= 2
+    return x
+
+
+def tiled_scan(kind: str, x: torch.Tensor, *, reverse: bool = False) -> torch.Tensor:
+    """Inclusive cumulative scan ("sum", "max" or "min") of a 1-D tensor,
+    in its own dtype (an int32 sum wraps as the JAX package's does).
+
+    The JAX package tiles the scan to dodge an XLA:TPU compile-time trap;
+    here the name stays so the two read side by side. A sum is
+    ``torch.cumsum``; a max or min is :func:`doubling_scan`, because CUDA's
+    ``cummax``/``cummin`` scan one long row in one slow kernel (33 ms over
+    12.6 M int32 on an H100, PERF.md)."""
+    if reverse:
+        return tiled_scan(kind, x.flip(0)).flip(0)
+    if kind == "sum":
+        return torch.cumsum(x, 0).to(x.dtype)
+    if kind == "max":
+        return doubling_scan(x, torch.maximum)
+    if kind == "min":
+        return doubling_scan(x, torch.minimum)
+    raise ValueError(f"unknown scan {kind!r}")
+
+
+def tiled_cumsum(x: torch.Tensor) -> torch.Tensor:
+    return tiled_scan("sum", x)
+
+
+def tiled_cummax(x: torch.Tensor) -> torch.Tensor:
+    return tiled_scan("max", x)
+
+
+def lsic_tables(u8: torch.Tensor):
+    """Vectorized LSIC (Linear Small-Integer Code) run decode.
+
+    For every byte position q of ``u8`` (taken as the first byte of an LSIC
+    extension run; lz4_flex reads these one byte at a time in read_integer,
+    src/block/decompress.rs:126-157), returns int32 tensors:
+
+      value[q]  the decoded extension value (the 0xFF run plus the
+                terminating byte)
+      nbytes[q] how many bytes the run occupies (run length + 1)
+
+    A reversed cumulative minimum finds the first byte at or after q that
+    is not 0xFF. A run that reaches the end reads the last byte as its
+    terminator, so callers pad the payload with at least one zero byte.
+    """
+    n = u8.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=u8.device)
+    cand = torch.where(u8 != 0xFF, pos, n - 1)
+    nz_next = tiled_scan("min", cand, reverse=True)
+    run = nz_next - pos
+    value = run * 255 + u8[nz_next].to(torch.int32)
+    return value, run + 1
+
+
+def scatter_drop(base: torch.Tensor, idx: torch.Tensor, vals, op: str = "set") -> torch.Tensor:
+    """``base.at[idx].<op>(vals, mode="drop")`` of the JAX package for a 1-D
+    ``base`` and op "set", "add" or "max"; returns a new tensor. ``vals`` is
+    a tensor shaped like ``idx`` or a number. Duplicate targets of "set"
+    must carry equal values (the scatter order is not fixed on CUDA).
+
+    As in JAX, a negative index counts from the end, and whatever then lies
+    outside [0, n) is dropped: it goes to a sink slot n of a buffer one
+    longer, which is sliced off. Never a clamp: that would write into a
+    real position."""
+    n = base.shape[0]
+    out = torch.cat([base, base.new_zeros(1)])
+    idx = torch.where(idx < 0, idx + n, idx)
+    tgt = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    if not isinstance(vals, torch.Tensor):
+        vals = torch.full(idx.shape, vals, dtype=base.dtype, device=base.device)
+    vals = vals.to(base.dtype)
+    if op == "add":
+        out.index_add_(0, tgt, vals)
+    elif op == "max":
+        out.scatter_reduce_(0, tgt, vals, reduce="amax")
+    elif op == "set":
+        out[tgt] = vals
+    else:
+        raise ValueError(f"unknown scatter op {op!r}")
+    return out[:n]

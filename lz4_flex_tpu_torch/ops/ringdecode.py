@@ -67,11 +67,12 @@ PLAN_OVERFLOW_CODES = (-100, -102, -103, -104)
 
 #: Public counters. ``kernel_launches`` counts every launch of the ring
 #: kernel (K1), ``checksum_launches`` those of its checksum variant (K1b),
-#: ``overflow_host_decodes`` every one-shot decode that fell to the native
-#: host decoder because the plan overflowed its static shape, and
+#: ``overflow_fused_decodes`` every decode whose plan overflowed its static
+#: shape and that the expansion engine decoded on the same device instead
+#: (ops/decode.py, frame/device.py, frame/decoder.py), and
 #: ``overflow_splits`` every streaming batch that was split into two plans
 #: for the same reason (frame/decoder.py).
-stats = {"kernel_launches": 0, "checksum_launches": 0, "overflow_host_decodes": 0,
+stats = {"kernel_launches": 0, "checksum_launches": 0, "overflow_fused_decodes": 0,
          "overflow_splits": 0}
 
 
@@ -401,44 +402,17 @@ def _to_bytes(t: torch.Tensor) -> bytes:
     return t.cpu().numpy().tobytes()
 
 
-def _host_decode_parts(parts, *, independent: bool, max_block_size: int | None) -> bytes:
-    """Native host decode of a block list: the overflow fallback until the
-    port has a device expansion engine. Linked blocks see the last 64 KiB of
-    output as their dictionary."""
-    out = bytearray()
-    for payload, is_comp in parts:
-        if is_comp:
-            cap = _native.measure_block(payload)
-            if max_block_size is not None and cap > max_block_size:
-                raise block_errors.OutputTooSmall(cap, max_block_size)
-            dic = b"" if independent else bytes(out[-65536:])
-            out += _native.decompress_block(payload, cap, dic)
-        else:
-            out += _native.as_u8(payload).tobytes()
-    stats["overflow_host_decodes"] += 1
-    return bytes(out)
-
-
-def _host_result(data: bytes, dev: torch.device, as_array: bool):
-    if not as_array:
-        return data
-    return torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(dev)
-
-
 def decode_block_ring(comp, total_out: int, *, device=None, as_array: bool = False):
     """Decode one LZ4 block through the ring kernel.
 
-    Returns bytes, or a uint8 tensor on ``device`` with ``as_array``. A block
-    whose plan overflows the static shape decodes on the native host decoder
-    (counted in ``stats["overflow_host_decodes"]``). Raises the block error
-    taxonomy on malformed input."""
+    Returns bytes, or a uint8 tensor on ``device`` with ``as_array``, or
+    None when the block does not fit the static plan shape (the caller
+    decodes it with the expansion engine). Raises the block error taxonomy
+    on malformed input."""
     dev = resolve_device(device)
     plan = build_ring_plan(comp, total_out)
     if plan is None:
-        return _host_result(
-            _host_decode_parts([(comp, True)], independent=True, max_block_size=None),
-            dev, as_array,
-        )
+        return None
     out = ring_decode(*ring_plan_device_tensors(plan, dev), tile_rows=plan.tile_rows)
     flat = out.reshape(-1)[: plan.total_out]
     return flat if as_array else _to_bytes(flat)
@@ -488,17 +462,13 @@ def decode_parts_ring(parts, *, independent: bool = False,
 
     ``parts`` is the frame's block list in order: (payload, is_compressed)
     pairs; linked-mode window references resolve through the kernel's 64 KiB
-    output ring. Returns bytes (or a device tensor with ``as_array``). A body
-    whose plan overflows decodes on the native host decoder (counted in
-    ``stats["overflow_host_decodes"]``). Raises the block error taxonomy on
-    malformed input."""
-    dev = resolve_device(device)
+    output ring. Returns bytes (or a device tensor with ``as_array``), or
+    None when the body does not fit the static plan shape (the caller
+    decodes it with the expansion engine, ops/decode.py:decode_parts_fused).
+    Raises the block error taxonomy on malformed input."""
     r = dispatch_parts_ring(parts, independent=independent,
-                            max_block_size=max_block_size, device=dev)
+                            max_block_size=max_block_size, device=device)
     if r is None:
-        return _host_result(
-            _host_decode_parts(parts, independent=independent, max_block_size=max_block_size),
-            dev, as_array,
-        )
+        return None
     out, total = r
     return out[:total] if as_array else _to_bytes(out[:total])

@@ -1,4 +1,4 @@
-"""Frame blocks through the device encoder on one card.
+"""Frame blocks through the device codec on one card.
 
 The one-card counterpart of the JAX package's
 ``parallel/pipeline.py:encode_blocks_sharded``: on a one-device mesh that
@@ -7,6 +7,11 @@ function sends chunk-scale blocks (at least ``_CHUNK_C`` bytes, so 1, 4 and
 linked block's dictionary the 64 KiB of input before it. Smaller blocks take
 the all-device encode there, which is not ported yet (ROADMAP item 6), so
 they raise here rather than come out as other bytes.
+
+The batched device-resident decode (``_decode_batch``, under
+``LZ4Codec.decode_step``) is the one-device case of the JAX package's
+``_decode_batch``: its ``vmap`` over rows becomes rows decoded one after
+another, since the engines' loops end where each row's data says.
 """
 
 from __future__ import annotations
@@ -52,3 +57,30 @@ def encode_blocks(data, block_size: int, *, linked: bool = False, carry: bytes =
         if linked:
             window = ((window + blk) if len(blk) < WINDOW_SIZE else blk)[-WINDOW_SIZE:]
     return payloads, lens, window
+
+
+def _decode_batch(rows, clen, *, out_pad, nseq_pad):
+    """Decode independent blocks on ``rows``' device: (B, C) uint8 payload
+    rows, each padded with at least one zero byte, and their (B,) lengths ->
+    ((B, out_pad) uint8 outputs, (B,) int32 lengths, (B, 5) bool error
+    flags), each row by ``ops.decode.decode_resident_core``."""
+    import torch
+
+    from ..ops.decode import decode_resident_core
+    from ..ops.parse import default_parse_engine
+
+    outs, totals, errs = [], [], []
+    for row, n in zip(rows, clen):
+        out, total, err = decode_resident_core(
+            row, n, out_pad=out_pad, nseq_pad=nseq_pad,
+            parse_engine=default_parse_engine(),
+        )
+        outs.append(out)
+        totals.append(total)
+        errs.append(err)
+    if not outs:
+        dev = rows.device
+        return (torch.zeros((0, out_pad), dtype=torch.uint8, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros((0, 5), dtype=torch.bool, device=dev))
+    return torch.stack(outs), torch.stack(totals), torch.stack(errs)

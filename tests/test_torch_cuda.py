@@ -1,5 +1,7 @@
 """The ring kernel and the probes' kernels on the card against their plain
-PyTorch versions, and the entry points with their default device. These tests need a CUDA card of
+PyTorch versions, the fallback decode engines (torch ops) on the card
+against their CPU run, and the entry points with their default device.
+These tests need a CUDA card of
 compute capability 9.0+ and skip without one; they import no JAX, so on a
 machine without it they run with
 
@@ -17,12 +19,24 @@ from lz4_flex_tpu_torch.experiments import fire_probe as FP
 from lz4_flex_tpu_torch.experiments import gather_probe as GP
 from lz4_flex_tpu_torch.frame import decompress_frame_device
 from lz4_flex_tpu_torch.models import LZ4Codec
+from lz4_flex_tpu_torch.ops import decode as D
 from lz4_flex_tpu_torch.ops import encode as E
+from lz4_flex_tpu_torch.ops import expand2 as X
 from lz4_flex_tpu_torch.ops import packing
+from lz4_flex_tpu_torch.ops import parse as P
 from lz4_flex_tpu_torch.ops import ringdecode as R
 from lz4_flex_tpu_torch.ops.decode import decode_block_device
+from lz4_flex_tpu_torch.ops.sequences import parse_sequences_host
 
 from .torch_inputs import block_inputs, wild_plan_fields, word_soup
+
+
+def block_compress_with_dict(data: bytes, dic: bytes) -> bytes:
+    """A block whose matches reach into ``dic``: the native encoder's table
+    carried over the dictionary (no JAX on the card's machine)."""
+    table = native.new_table()
+    native.compress_block(dic, table=table)
+    return native.compress_block(dic + data, input_pos=len(dic), input_stream_offset=0, table=table)
 
 pytestmark = pytest.mark.cuda
 
@@ -174,7 +188,7 @@ def test_frame_decoder_device_engine_equals_cpu_run(card, monkeypatch):
         before = dict(R.stats)
         got = frame.FrameDecoder(io.BytesIO(f), engine="device").read_all()
         assert R.stats["kernel_launches"] == before["kernel_launches"] + 4
-        assert R.stats["overflow_host_decodes"] == before["overflow_host_decodes"]
+        assert R.stats["overflow_fused_decodes"] == before["overflow_fused_decodes"]
         assert got == data
         assert frame.FrameDecoder(io.BytesIO(f), engine="device", device="cpu").read_all() == got
     legacy = _frame(data, legacy_frame=True)
@@ -230,3 +244,88 @@ def test_gather_probe_equals_plain(card, variant):
     assert GP.stats[variant] == before + 1
     want = GP.PLAIN[GP.function_of(variant)](tbl, idx).reshape(GP.OUT_ROWS, GP.WIDTH)
     assert torch.equal(got, want)
+
+
+def _on_both(card, fn, arrays, *args, **kw):
+    """``fn`` on the card and on the CPU, on the same numpy inputs."""
+    got = fn(*(torch.from_numpy(a.copy()).to(card) for a in arrays), *args, **kw)
+    want = fn(*(torch.from_numpy(a.copy()) for a in arrays), *args, **kw)
+    return got, want
+
+
+def _same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("name", ["deep_chains", "periodic_ring_boundary", "word_soup", "rle_overlap"])
+def test_expansion_engines_equal_cpu_run(card, name):
+    data = block_inputs()[name]
+    comp = np.frombuffer(native.compress_block(data), np.uint8)
+    seq = parse_sequences_host(comp)
+    out_pad = packing.size_bucket(seq.total_out)
+    nseq_pad = packing.size_bucket(seq.nseq, minimum=256)
+    cw = D._pack_host(comp, packing.size_bucket(len(comp)))
+    tables = [packing.pad_to(seq.out_off, nseq_pad, fill=out_pad), packing.pad_to(seq.lit_start, nseq_pad),
+              packing.pad_to(seq.lit_len, nseq_pad), packing.pad_to(seq.match_off, nseq_pad, fill=1)]
+    dw = np.zeros(1, np.int32)
+    for fn in (D.expand_core, X.expand2_core):
+        got, want = _on_both(card, fn, [cw, dw, *tables], 0, seq.total_out, out_pad=out_pad,
+                             has_dict=False)
+        _same(got, want)
+        assert got[: seq.total_out].cpu().numpy().tobytes() == data
+    s_got, s_want = _on_both(card, X.build_source_map, tables, 0, seq.total_out, out_pad=out_pad,
+                             comp_pad=cw.shape[0] * 4, dict_bytes=0)
+    _same(s_got, s_want)
+    r_got, r_want = _on_both(card, X.resolve_cells, [s_want.numpy()], out_pad=out_pad)
+    _same(r_got, r_want)
+
+
+@pytest.mark.parametrize("name", ["word_soup", "rle_overlap", "incompressible"])
+def test_parse_engines_equal_cpu_run(card, name):
+    comp = native.compress_block(block_inputs()[name][:60000])
+    pad = packing.size_bucket(len(comp) + 1)
+    u8 = packing.pad_to(np.frombuffer(comp, np.uint8), pad)
+    nseq_pad = packing.size_bucket(pad // 3 + 2, minimum=256)
+    for fn in (P.parse_core, P.parse_walk_core):
+        _same(*_on_both(card, fn, [u8], len(comp), nseq_pad=nseq_pad))
+    for lanes in (4, 8):
+        _same(*_on_both(card, P.parse_strided_core, [u8], len(comp), lanes=lanes))
+    for parse in ("doubling", "walk"):
+        for expand in ("v1", "v2"):
+            _same(*_on_both(card, D.decode_resident_core, [u8], len(comp), out_pad=65536,
+                            nseq_pad=nseq_pad, parse_engine=parse, expand_engine=expand))
+
+
+def test_fallback_entry_points_on_card(card, monkeypatch):
+    soup = word_soup(370000, seed=37)
+    dic, data = soup[:70000], soup[70000:]
+    comp, dcomp = native.compress_block(data), block_compress_with_dict(data, dic)
+    for parse in ("host", "device"):
+        for engine in ("v1", "v2"):
+            arr = decode_block_device(comp, len(data), parse=parse, engine=engine, as_array=True)
+            assert arr.device.type == "cuda" and arr.cpu().numpy().tobytes() == data
+        assert decode_block_device(dcomp, len(data), dic, parse=parse) == data
+    f = frame.compress(data[:200000], frame.FrameInfo(block_size=frame.BlockSize.Max64KB))
+    rows = np.zeros((2, 65536 + 512), np.uint8)  # row 0 is empty: flagged as truncated
+    small = native.compress_block(data[:60000])
+    rows[1, : len(small)] = np.frombuffer(small, np.uint8)
+    out, total, errs = LZ4Codec(device=card).decode_step(rows, [0, len(small)])
+    assert out.device.type == "cuda" and int(total[1]) == 60000
+    assert out[1, :60000].cpu().numpy().tobytes() == data[:60000]
+    assert errs[0].tolist() == [False, True, False, False, False] and not bool(errs[1].any())
+    # forced overflow: every ring plan overflows, and everything stays on the card
+    monkeypatch.setattr(R, "NFMAX_STEPS", (1,))
+    monkeypatch.setattr(R, "NFMAX_RETRY", 1)
+    monkeypatch.setattr(R, "_nfmax_hint", [1])
+    monkeypatch.setattr(native, "decompress_block", None)  # any host decode would raise
+    before = dict(R.stats)
+    assert decode_block_device(comp, len(data)) == data
+    assert decode_block_device(dcomp, len(data), dic) == data
+    assert decompress_frame_device(f) == data[:200000]
+    one = frame.compress(data[:60000], frame.FrameInfo(block_size=frame.BlockSize.Max64KB))
+    assert frame.FrameDecoder(io.BytesIO(one), engine="device").read_all() == data[:60000]
+    assert R.stats["overflow_fused_decodes"] == before["overflow_fused_decodes"] + 4
+    assert R.stats["kernel_launches"] == before["kernel_launches"]

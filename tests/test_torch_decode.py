@@ -1,13 +1,15 @@
 """decode_block_device of the port (on the CPU, through the ring kernel's
 plain version) against the JAX package's host block decoder: byte-exact,
-with and without a dictionary, the error taxonomy, and the plan-overflow
-fallback to the native host decoder."""
+with and without a dictionary, the error taxonomy, the ``parse="host"`` and
+``"device"`` engines against the JAX package's, and the plan-overflow
+fallback to the expansion engine on the same device."""
 
 import numpy as np
 import pytest
 import torch
 
 from lz4_flex_tpu import block
+from lz4_flex_tpu.ops.decode import decode_block_device as jax_decode_block_device
 from lz4_flex_tpu_torch import native
 from lz4_flex_tpu_torch.block import errors as E
 from lz4_flex_tpu_torch.models import LZ4Codec
@@ -66,13 +68,25 @@ def test_error_taxonomy():
                             device="cpu")
 
 
-def test_unported_engines_raise():
-    comp = block.compress(b"abc" * 100)
-    for parse in ("host", "device"):
-        with pytest.raises(NotImplementedError):
-            decode_block_device(comp, 300, parse=parse, device="cpu")
+@pytest.mark.parametrize("parse", ["host", "device"])
+def test_parse_engines_equal_jax(parse):
+    data = word_soup(40000, seed=25)
+    dic = word_soup(12000, seed=26)
+    for d in (b"", dic):
+        comp = block.compress_with_dict(data, d) if d else block.compress(data)
+        want = jax_decode_block_device(comp, len(data), d, parse=parse)
+        for engine in ("v1", "v2"):
+            got = decode_block_device(comp, len(data), d, parse=parse, engine=engine, device="cpu")
+            assert got == want == data
+        arr = decode_block_device(comp, len(data), d, parse=parse, device="cpu", as_array=True)
+        assert arr.dtype == torch.uint8 and arr.numpy().tobytes() == data
+    with pytest.raises(E.OutputTooSmall):
+        decode_block_device(comp, len(data) - 1, dic, parse=parse, device="cpu")
+    with pytest.raises(E.OffsetOutOfBounds):
+        decode_block_device(np.array([0x10, 65, 100, 0, 0x50, 97, 98, 99, 100, 101], np.uint8), 100,
+                            parse=parse, device="cpu")
     with pytest.raises(ValueError):
-        decode_block_device(comp, 300, parse="nope", device="cpu")
+        decode_block_device(comp, len(data), parse="nope", device="cpu")
 
 
 def _tiny_ladder(monkeypatch):
@@ -83,13 +97,20 @@ def _tiny_ladder(monkeypatch):
 
 @pytest.mark.parametrize("with_dict", [False, True])
 def test_overflow_falls_to_host_decoder(monkeypatch, with_dict):
+    """A block whose plan overflows decodes through the expansion engine on
+    the same device, counted in overflow_fused_decodes; nothing decodes on
+    the host and the kernel is not launched."""
     _tiny_ladder(monkeypatch)
+    monkeypatch.setattr(native, "decompress_block", None)  # any host decode would raise
     dic = word_soup(70000, seed=24) if with_dict else b""
     data = word_soup(300000, seed=8)
     comp = block.compress_with_dict(data, dic) if with_dict else block.compress(data)
     before = dict(R.stats)
     assert decode_block_device(comp, len(data), dic, device="cpu") == data
-    assert R.stats["overflow_host_decodes"] == before["overflow_host_decodes"] + 1
+    assert R.stats["overflow_fused_decodes"] == before["overflow_fused_decodes"] + 1
     assert R.stats["kernel_launches"] == before["kernel_launches"]
     arr = decode_block_device(comp, len(data), dic, device="cpu", as_array=True)
     assert arr.numpy().tobytes() == data
+    assert R.stats["overflow_fused_decodes"] == before["overflow_fused_decodes"] + 2
+    with pytest.raises(E.OutputTooSmall):
+        decode_block_device(comp, len(data) - 1, dic, device="cpu")

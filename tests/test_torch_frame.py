@@ -9,6 +9,7 @@ import pytest
 
 from lz4_flex_tpu import frame as ref_frame
 from lz4_flex_tpu.frame import BlockMode, BlockSize, FrameInfo
+from lz4_flex_tpu_torch import native
 from lz4_flex_tpu_torch.frame import BlockInfo, BlockInfoKind, decompress_frame_device
 from lz4_flex_tpu_torch.frame import errors as FE
 from lz4_flex_tpu_torch.models import CodecConfig, LZ4Codec
@@ -105,11 +106,16 @@ def test_corrupt_block_raises_decompression_error():
 
 @pytest.mark.parametrize("mode", [BlockMode.Independent, BlockMode.Linked])
 def test_overflow_falls_to_host_decoder(monkeypatch, mode):
+    """A frame body whose plan overflows decodes through the expansion
+    engine on the same device (decode_parts_fused), counted in
+    overflow_fused_decodes; nothing decodes on the host."""
     monkeypatch.setattr(R, "NFMAX_STEPS", (1,))
     monkeypatch.setattr(R, "NFMAX_RETRY", 1)
     monkeypatch.setattr(R, "_nfmax_hint", [1])
+    monkeypatch.setattr(native, "decompress_block", None)  # any host decode would raise
     f = ref_frame.compress(SOUP, FrameInfo(block_size=BlockSize.Max64KB, block_mode=mode,
                                            content_checksum=True))
-    before = R.stats["overflow_host_decodes"]
+    before = dict(R.stats)
     assert decompress_frame_device(f, device="cpu") == SOUP
-    assert R.stats["overflow_host_decodes"] == before + 1
+    assert R.stats["overflow_fused_decodes"] == before["overflow_fused_decodes"] + 1
+    assert R.stats["kernel_launches"] == before["kernel_launches"]

@@ -33,8 +33,11 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch.ops._kernels",
     "lz4_flex_tpu_torch.ops.decode",
     "lz4_flex_tpu_torch.ops.encode",
+    "lz4_flex_tpu_torch.ops.expand2",
     "lz4_flex_tpu_torch.ops.packing",
+    "lz4_flex_tpu_torch.ops.parse",
     "lz4_flex_tpu_torch.ops.ringdecode",
+    "lz4_flex_tpu_torch.ops.sequences",
     "lz4_flex_tpu_torch.parallel",
     "lz4_flex_tpu_torch.parallel.executor",
     "lz4_flex_tpu_torch.parallel.pipeline",
@@ -81,6 +84,8 @@ def test_every_port_module_is_listed():
 def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     import io
 
+    import numpy as np
+
     from lz4_flex_tpu import block, frame
     from lz4_flex_tpu_torch.frame import (
         BlockSize,
@@ -93,8 +98,9 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     from lz4_flex_tpu_torch.models import CodecConfig, LZ4Codec
     from lz4_flex_tpu_torch.ops import encode as E
     from lz4_flex_tpu_torch.ops import ringdecode as R
-    from lz4_flex_tpu_torch.ops.decode import decode_block_device
+    from lz4_flex_tpu_torch.ops.decode import decode_block_device, decode_parts_fused
     from lz4_flex_tpu_torch.ops.encode import compress_block_hybrid
+    from lz4_flex_tpu_torch.ops.parse import parse_sequences_device
     from lz4_flex_tpu_torch.parallel.pipeline import encode_blocks
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -110,6 +116,11 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         lambda: LZ4Codec().decompress_block(comp, len(data)),
         lambda: R.decode_parts_ring([(comp, True)]),
         lambda: decode_block_device(comp, len(data), device="cuda"),
+        lambda: decode_block_device(comp, len(data), parse="host"),
+        lambda: decode_block_device(comp, len(data), parse="device"),
+        lambda: decode_parts_fused([(comp, True)]),
+        lambda: parse_sequences_device(comp),
+        lambda: LZ4Codec().decode_step(np.frombuffer(comp + b"\0", np.uint8)[None], [len(comp)]),
         lambda: FrameDecoder(io.BytesIO(f), engine="device").read_all(),
         lambda: FrameEncoder(io.BytesIO(), big, engine="device").write(data),
         lambda: compress_block_hybrid(data),
