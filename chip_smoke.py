@@ -66,8 +66,28 @@ Phases (any failure raises and the exit code is not 0):
    dictionary, ``decompress_frame_device`` and a one-block
    ``FrameDecoder`` batch must each decode byte-exact through one fused
    decode, with no K1 launch and the host decoder refusing every call.
+9. All-device encode (torch ops): ``match_core``, ``emit_core``,
+   ``encode_chunk_core``, ``_match_quad`` and ``_merge_emit`` on the card
+   held bit-equal to the same functions on the CPU, on the arguments they
+   were called with (the first 256 KiB of each of phase 2's blocks as one
+   chunk and as 64 KiB frame blocks; the first dispatch of the default
+   codec's frame, the first quad and the merge of the resident encode of
+   the 10 MiB soup, and the single-chunk encode of 300 KiB with a
+   dictionary). Full size on the 10 MiB soup, each decoded back to its
+   input by the native decoder and the port's device decoders:
+   ``LZ4Codec().compress`` (160 independent 64 KiB blocks), 64 KiB linked
+   with a content checksum, 256 KiB with block checksums,
+   ``FrameEncoder(engine="device")`` at 64 KiB, ``LZ4Codec.compress_block``
+   on the whole soup (resident: 23 chunk rows, 6 quads) and on 300 KiB with
+   a dictionary, and ``encode_step`` on 32 rows of 98,304 bytes; each with
+   the encode counters set to 0 just before it: the device programs ran,
+   no candidate plane ran, and the verify guard never fell back. Stage
+   times, end to end beside ``compress_block_hybrid`` and
+   ``native.compress_block``, peak device memory, device busy share and
+   top kernels.
    Then one JSON line ``{"kernels": ...}`` whose ``max_abs_err`` covers every
-   comparison and whose K1 launches count every path of phases 3, 6 and 7.
+   comparison and whose K1 launches count every path of phases 3, 6, 7 and
+   9.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -849,6 +869,237 @@ def main() -> None:
     finally:
         R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0], native.decompress_block = saved
     print(f"  phase 8 took {time.perf_counter() - t_phase8:.1f} s", flush=True)
+
+    # ---- 9. all-device encode --------------------------------------------------------
+    print(f"phase 9: all-device encode (torch ops; tolerance: bit-exact against the same "
+          f"functions on the CPU, byte-exact against the data) [{card}]", flush=True)
+    t_phase9 = time.perf_counter()
+    from lz4_flex_tpu_torch.parallel import pipeline as PP
+
+    programs = ("match_core", "emit_core", "encode_chunk_core", "_match_quad", "_merge_emit")
+    prog_calls = dict.fromkeys(programs, 0)  # calls on the main paths below
+
+    def recorded(fn, keep: bool = True):
+        """``fn()`` with the device programs of ops.encode wrapped: every
+        call is counted in ``prog_calls``, and with ``keep`` the first call
+        of each program is recorded as (args, kwargs, result)."""
+        saved = {k: getattr(E, k) for k in programs}
+        first = {}
+
+        def wrap(name, f):
+            def inner(*a, **kw):
+                r = f(*a, **kw)
+                prog_calls[name] += 1
+                if keep and name not in first:
+                    first[name] = (a, kw, r)
+                return r
+            return inner
+
+        for k, f in saved.items():
+            setattr(E, k, wrap(k, f))
+        try:
+            return fn(), first
+        finally:
+            for k, f in saved.items():
+                setattr(E, k, f)
+
+    def to_cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, (tuple, list)):
+            return type(x)(to_cpu(v) for v in x)
+        return x
+
+    def tensors(x):
+        return [x] if isinstance(x, torch.Tensor) else [t for v in x for t in tensors(v)] \
+            if isinstance(x, (tuple, list)) else []
+
+    prog_err = dict.fromkeys(programs, 0)
+
+    def replay(first: dict, label: str) -> None:
+        """Each recorded call again on the CPU, on the same arguments."""
+        errs = {}
+        for name, (a, kw, r) in first.items():
+            want = getattr(E, name)(*to_cpu(a), **{k: to_cpu(v) for k, v in kw.items()})
+            errs[name] = max((int((g.cpu().long() - w.long()).abs().max()) if w.numel() else 0)
+                             for g, w in zip(tensors(r), tensors(want)))
+            prog_err[name] = max(prog_err[name], errs[name])
+        print(f"  {label:40s} max_abs_err {errs}", flush=True)
+        if any(errs.values()):
+            raise SystemExit(f"chip_smoke: a device program differs from its CPU run on {label}")
+
+    for k in E.stats:
+        E.stats[k] = 0
+    for label, blk in blocks.items():
+        part = blk[: 256 * 1024]
+        one, first = recorded(lambda: E.compress_block_device(part))
+        (payloads, lens, _), first2 = recorded(lambda: PP.encode_blocks(part, 65536))
+        same(native.decompress_block(one, len(part)), part, label)
+        same(b"".join(native.decompress_block(p, m) for p, m in zip(payloads, lens)), part, label)
+        # the single chunk's match and emission, and the frame blocks' dispatch
+        replay({**first2, **first}, f"{label}, first 256 KiB")
+    if E.stats["verify_fallbacks"] or E.stats["plane_quads"]:
+        raise SystemExit(f"chip_smoke: the parity encodes fell back or planed: {E.stats}")
+    prog_calls.update(dict.fromkeys(programs, 0))  # count the main paths only
+
+    def encode_path(label: str, fn, decode=None, want: bytes = data, keep: bool = False):
+        """One main-path encode with the encode counters set to 0 just
+        before it: the device programs must have run, no candidate plane
+        and no fallback to the host encoder. Returns its output, the
+        recorded first calls, and the counts."""
+        for k in E.stats:
+            E.stats[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, first = recorded(fn, keep)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = dict(E.stats)
+        peak = torch.cuda.max_memory_allocated() / MIB
+        print(f"  {label:52s} first call {ms:.1f} ms, peak {peak:.1f} MiB, counts {st} [{card}]",
+              flush=True)
+        if (st["match_calls"] == 0 or st["emit_calls"] == 0 or st["plane_quads"]
+                or st["candidate_calls"] or st["verify_fallbacks"]):
+            raise SystemExit(f"chip_smoke: {label} did not encode on the card as it must: {st}")
+        if decode is not None:
+            same(decode(out), want, f"{label}, native decode")
+        return out, first, st
+
+    def frame_of(cfg):
+        return LZ4Codec(cfg).compress(data)
+
+    def check_frame(label: str, f: bytes) -> None:
+        same(F.decompress(f), data, f"{label}, host read")
+        main_path(f"decompress_frame_device of {label}", lambda: expect(decompress_frame_device(f), label))
+        main_path(f"FrameDecoder device of {label}",
+                  lambda: expect(F.FrameDecoder(io.BytesIO(f), engine="device").read_all(), label))
+
+    cfg64 = CodecConfig()
+    base10 = torch.cuda.memory_allocated()
+    f_default, first_default, _ = encode_path(
+        "LZ4Codec().compress (160 x 64 KiB independent)", lambda: frame_of(cfg64), keep=True)
+    peak10 = torch.cuda.max_memory_allocated() - base10
+    check_frame("the default codec frame", f_default)
+    # encode_blocks uploads, encodes and reads back 32 rows at a time, so
+    # eight times the input must not raise the peak
+    big = data * 8
+    base80 = torch.cuda.memory_allocated()
+    encode_path(f"LZ4Codec().compress ({len(big) // 65536:,} x 64 KiB independent)",
+                lambda: LZ4Codec().compress(big), decode=F.decompress, want=big)
+    peak80 = torch.cuda.max_memory_allocated() - base80
+    print(f"  peak memory of LZ4Codec().compress above what was held: {peak10 / MIB:.1f} MiB "
+          f"on {n / MIB:.0f} MiB, {peak80 / MIB:.1f} MiB on {len(big) / MIB:.0f} MiB [{card}]",
+          flush=True)
+    if peak80 > 1.1 * peak10:
+        raise SystemExit("chip_smoke: the default codec's device memory grows with its input")
+    del big
+    frame_cfgs = {
+        "64 KiB linked, content checksum": CodecConfig(block_mode=BlockMode.Linked,
+                                                       content_checksum=True),
+        "256 KiB independent, block checksums": CodecConfig(block_size=BlockSize.Max256KB,
+                                                            block_checksums=True),
+    }
+    encoded = {}
+    for label, cfg in frame_cfgs.items():
+        f, _, _ = encode_path(f"LZ4Codec.compress ({label})", lambda: frame_of(cfg))
+        check_frame(label, f)
+        encoded[label.split(" ")[0] + " KiB"] = f
+
+    def stream_enc64():
+        buf = io.BytesIO()
+        with F.FrameEncoder(buf, FrameInfo(block_size=BlockSize.Max64KB), engine="device") as enc:
+            for i in range(0, n, 3 * MIB + 12345):
+                enc.write(data[i : i + 3 * MIB + 12345])
+        return buf.getvalue()
+
+    f_stream, _, _ = encode_path("FrameEncoder device (64 KiB independent)", stream_enc64)
+    same(f_stream, f_default, "FrameEncoder device against LZ4Codec().compress")
+
+    comp_res, first_res, s_res = encode_path(
+        "LZ4Codec.compress_block (10 MiB, resident)", lambda: LZ4Codec().compress_block(data),
+        decode=lambda c: native.decompress_block(c, n), keep=True)
+    quads = -(-E._row_bucket(-(-n // E._CHUNK_C)) // 4)  # 23 chunk rows, bucket 24: 6
+    if (s_res["match_calls"], s_res["emit_calls"]) != (quads, 1):
+        raise SystemExit(f"chip_smoke: the resident encode took {s_res}, not {quads} quads "
+                         f"and 1 merge")
+    main_path("decode_block_device of the resident wire",
+              lambda: expect(decode_block_device(comp_res, n), "resident"))
+    dict300, src300 = data[: 65536], data[65536 : 65536 + 300 * 1024]
+    comp300, first300, _ = encode_path(
+        "LZ4Codec.compress_block (300 KiB + 64 KiB dictionary)",
+        lambda: LZ4Codec().compress_block(src300, dict300),
+        decode=lambda c: native.decompress_block(c, len(src300), dict300), want=src300, keep=True)
+    main_path("decode_block_device of the 300 KiB wire",
+              lambda: same(decode_block_device(comp300, len(src300), dict300), src300, "300 KiB"))
+    step_rows, step_d, step_t, step_nb = PP.stage_blocks(data[: 32 * 65536], 65536)
+    (step_out, step_tot), _, _ = encode_path(
+        f"LZ4Codec().encode_step ({step_nb} x {step_rows.shape[1]:,})",
+        lambda: LZ4Codec().encode_step(step_rows, step_d, step_t))
+    step_h, step_n = step_out.cpu().numpy(), step_tot.cpu().numpy()
+    same(b"".join(native.decompress_block(step_h[i, : step_n[i]].tobytes(), 65536)
+                  for i in range(step_nb)), data[: 32 * 65536], "encode_step")
+    replay(first_default, "first dispatch of the default codec frame")
+    replay(first_res, "first quad and the merge, 10 MiB resident")
+    replay(first300, "single chunk, 300 KiB + dictionary")
+
+    # stage times on the first dispatch of the default codec frame, and the
+    # resident encode's first quad and merge (CUDA events, median of 5)
+    def timed(first: dict, name: str) -> float:
+        a, kw, _ = first[name]
+        return kernel_ms(lambda: getattr(E, name)(*a, **kw), iters=5, warmup=1)
+
+    def bound(first: dict, name: str) -> float:
+        """Each input read once and each output written once, over the HBM
+        rate (a quad reads its four chunk rows of the resident stream)."""
+        a, kw, r = first[name]
+        ins = tensors(a) + tensors(list(kw.values()))
+        moved = sum(t.numel() * t.element_size() for t in ins + tensors(r))
+        if name == "_match_quad":
+            moved += len(a[1]) * E._CHUNK_W - a[0].numel()
+        return moved / FP.HBM_BYTES_PER_S * 1e3
+
+    prog_ms = {name: timed(first_default, name) for name in ("match_core", "emit_core",
+                                                             "encode_chunk_core")}
+    prog_ms.update({name: timed(first_res, name) for name in ("_match_quad", "_merge_emit")})
+    prog_bound = {name: bound(first_default, name) for name in ("match_core", "emit_core",
+                                                                "encode_chunk_core")}
+    prog_bound.update({name: bound(first_res, name) for name in ("_match_quad", "_merge_emit")})
+    for name in programs:
+        print(f"  device program {name:18s} {prog_ms[name]:9.3f} ms, bytes bound "
+              f"{prog_bound[name]:.5f} ms, calls on the main paths {prog_calls[name]}, "
+              f"max_abs_err {prog_err[name]} [{card}]", flush=True)
+    out32 = first_default["encode_chunk_core"][2][0]
+    read_ms = cuda_host_ms(lambda: out32.cpu(), 5)
+    payloads64, lens64, _ = PP.encode_blocks(data, 65536)
+    verify_ms = host_ms(lambda: [native.verify_block(p, data[i * 65536 : i * 65536 + m])
+                                 for i, (p, m) in enumerate(zip(payloads64, lens64))], 3)
+    stage_ms = host_ms(lambda: PP.stage_blocks(data, 65536), 3)
+    staged = PP.stage_blocks(data, 65536)[0]
+    group = staged[: PP._ENCODE_ROWS]
+    up_ms = cuda_host_ms(lambda: torch.from_numpy(group).pin_memory().cuda(non_blocking=True), 3)
+    print(f"  stages, 10 MiB in 64 KiB blocks: staging {stage_ms:.3f} ms, pinned upload of one "
+          f"group {up_ms:.3f} ms, "
+          f"{len(lens64)} rows in {-(-len(lens64) // PP._ENCODE_ROWS)} dispatches of "
+          f"{prog_ms['encode_chunk_core']:.3f} ms (match {prog_ms['match_core']:.3f}, emit "
+          f"{prog_ms['emit_core']:.3f}), payload read of one dispatch {read_ms:.3f} ms, verify "
+          f"walks {verify_ms:.3f} ms [{card}]", flush=True)
+    print(f"  stages, 10 MiB resident: {quads} quads of {prog_ms['_match_quad']:.3f} ms, merge "
+          f"and emission {prog_ms['_merge_emit']:.3f} ms [{card}]", flush=True)
+    cfg256 = frame_cfgs["256 KiB independent, block checksums"]
+    e2e = {
+        "LZ4Codec().compress (64 KiB)": (lambda: frame_of(cfg64), f_default),
+        "LZ4Codec.compress (256 KiB)": (lambda: frame_of(cfg256), encoded["256 KiB"]),
+        "compress_block_device (resident)": (lambda: E.compress_block_device(data), comp_res),
+        "compress_block_hybrid": (lambda: E.compress_block_hybrid(data), hybrid["bench soup"]),
+        "native.compress_block": (lambda: native.compress_block(data), comp),
+    }
+    for label, (fn, out) in e2e.items():
+        ms = host_ms(fn, 3)
+        print(f"  {label:36s} {ms:9.3f} ms = {n / MIB / (ms / 1e3):7.1f} MiB/s, ratio "
+              f"{len(out) / n:.4f} [{card}]", flush=True)
+    device_busy(lambda: frame_of(cfg64), "LZ4Codec().compress (64 KiB)", top=8)
+    device_busy(lambda: E.compress_block_device(data), "compress_block_device (resident)", top=6)
+    print(f"  phase 9 took {time.perf_counter() - t_phase9:.1f} s", flush=True)
 
     main = results[R.TILE_ROWS]
     kernels = [

@@ -1,9 +1,9 @@
 """One-shot frame codec on the device engine.
 
-Encode: a FrameEncoder on the device engine (frame/encoder.py) given the
-whole input: its blocks go through the hybrid encoder on the card
-(parallel/pipeline.py: encode_blocks), one block at a time, a linked block's
-dictionary being the 64 KiB of input before it.
+Encode: all blocks of the input staged at once and encoded on the card in
+batched dispatches (parallel/pipeline.py: encode_blocks; a linked block's
+dictionary is the 64 KiB of input before it), framed by a FrameEncoder on
+the device engine (frame/encoder.py).
 
 Decode: every frame body in ``data`` goes through the ring decoder as one
 plan (ops/ringdecode.py: decode_parts_ring), linked or independent; a body
@@ -44,20 +44,24 @@ def _is_any_magic(word: int) -> bool:
     )
 
 
-def compress_frame_device(data, frame_info: FrameInfo | None = None, *, device=None) -> bytes:
-    """Compress ``data`` into one LZ4 frame with the device encoder: a
+def compress_frame_device(data, frame_info: FrameInfo | None = None, *, device=None,
+                          verify: bool = True) -> bytes:
+    """Compress ``data`` into one LZ4 frame with the device encoder, the
+    promised content size checked before any block is encoded: a
     :class:`FrameEncoder` on ``engine="device"`` given all of ``data`` in one
-    write, the promised content size checked before any block is encoded.
+    write, so the frame's blocks are staged at once and encoded in batched
+    dispatches.
 
-    ``device=None`` means the CUDA card; ``device="cpu"`` computes the
-    candidate planes on the CPU. Frames of 64 and 256 KiB blocks raise
-    NotImplementedError (their encoder, ROADMAP item 6, is not ported)."""
+    ``device=None`` means the CUDA card; ``device="cpu"`` runs the same
+    torch ops on the CPU. ``verify`` (default on) checks every payload of
+    the all-device encoder (64 and 256 KiB blocks) with the native verify
+    walk and re-encodes a mismatching block on the host."""
     from .encoder import FrameEncoder
 
     data = bytes(data)
     fi = frame_info if frame_info is not None else FrameInfo()
     buf = io.BytesIO()
-    enc = FrameEncoder(buf, fi, engine="device", device=device)
+    enc = FrameEncoder(buf, fi, engine="device", device=device, verify=verify)
     if fi.content_size is not None and fi.content_size != len(data):
         raise errors.ContentLengthError(fi.content_size, len(data))
     enc.write(data)

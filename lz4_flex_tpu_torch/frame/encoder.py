@@ -10,11 +10,11 @@ legacy frames written as well as read.
 
 ``engine="host"`` (default) drives the native encoder block by block, its
 match table carried across blocks with 64-bit stream positions.
-``engine="device"`` sends each full block, as it fills, through the hybrid
-encoder on the card (parallel/pipeline.py: encode_blocks; one card is one
-block per dispatch); frames of 64 and 256 KiB blocks raise
-NotImplementedError there until the all-device encoder is ported (ROADMAP
-item 6).
+``engine="device"`` sends the full blocks buffered by each write through
+the device encoder on the card (parallel/pipeline.py: encode_blocks): 64
+and 256 KiB blocks through the all-device encoder in batched dispatches,
+checked by the native verify walk unless ``verify=False``, and 1 to 8 MiB
+blocks through the hybrid encoder.
 """
 
 from __future__ import annotations
@@ -35,11 +35,13 @@ class FrameEncoder:
 
     Must be finalized with :meth:`finish` / :meth:`try_finish`, or used as a
     context manager (which finishes on exit). ``device`` (``None`` = the
-    CUDA card, or ``"cpu"``) serves ``engine="device"``.
+    CUDA card, or ``"cpu"``) and ``verify`` (default on: each payload of
+    the all-device encoder checked by the native verify walk, a mismatching
+    block re-encoded on the host) serve ``engine="device"``.
     """
 
     def __init__(self, w, frame_info: FrameInfo | None = None, *, engine: str = "host",
-                 device=None) -> None:
+                 device=None, verify: bool = True) -> None:
         if engine not in ("host", "device"):
             raise ValueError(f"unknown engine {engine!r}")
         self._device = None
@@ -57,6 +59,7 @@ class FrameEncoder:
         self._window = b""
         self._table = _native.new_table()
         self._engine = engine
+        self._verify = verify
 
     # -- accessors ----------------------------------------------------------
 
@@ -96,10 +99,6 @@ class FrameEncoder:
             # Legacy frames are always independent 8 MiB blocks.
             self._frame_info.block_size = BlockSize.Max8MB
             self._frame_info.block_mode = BlockMode.Independent
-        if self._engine == "device":
-            from ..parallel.pipeline import check_block_size
-
-            check_block_size(self._frame_info.block_size.get_size())
         self._is_frame_open = True
         if self._frame_info.legacy_frame:
             self._w.write(struct.pack("<I", LZ4F_LEGACY_MAGIC_NUMBER))
@@ -170,20 +169,22 @@ class FrameEncoder:
     # -- device engine ---------------------------------------------------------
 
     def _write_device_blocks(self, *, all_pending: bool) -> None:
-        """Compress one buffered full block (all buffered bytes when
-        ``all_pending``) on the device and write it in frame order."""
+        """Compress every buffered full block (all buffered bytes when
+        ``all_pending``) on the device, in batched dispatches, and write
+        them in frame order."""
         from ..parallel.pipeline import encode_blocks
 
         fi = self._frame_info
         bs = fi.block_size.get_size()
-        take = len(self._pending) if all_pending else min(len(self._pending) // bs, 1) * bs
+        take = len(self._pending) if all_pending else len(self._pending) // bs * bs
         if take == 0:
             return
         chunk = bytes(self._pending[:take])
         del self._pending[:take]
         linked = fi.block_mode == BlockMode.Linked and not fi.legacy_frame
         payloads, lens, self._window = encode_blocks(
-            chunk, bs, linked=linked, carry=self._window, device=self._device
+            chunk, bs, linked=linked, carry=self._window, device=self._device,
+            verify=self._verify,
         )
         pos = 0
         for comp, blen in zip(payloads, lens):

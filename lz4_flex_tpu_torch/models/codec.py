@@ -2,12 +2,12 @@
 
 Bundles the frame wire format (frame/) and the device codec (ops/) behind
 one object: a configuration (block size and mode, checksums — the
-reference's FrameInfo setters, src/frame/header.rs:130-192), the
-byte-level methods (``compress``, ``decompress``, ``decompress_block``) and
-the batched array step ``decode_step`` (device-resident decode of
-independent blocks: tensors in, tensors out, for embedding in a larger
-device pipeline). ``encode_step`` and ``compress_block`` come with the
-all-device encoder (ROADMAP item 6).
+reference's FrameInfo setters, src/frame/header.rs:130-192 — and the
+verify guard of the device encoder), the byte-level methods (``compress``,
+``decompress``, ``compress_block``, ``decompress_block``) and the batched
+array steps ``encode_step`` and ``decode_step`` (device-resident encode and
+decode of independent blocks: tensors in, tensors out, for embedding in a
+larger device pipeline).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ class CodecConfig:
     block_mode: BlockMode = BlockMode.Independent
     block_checksums: bool = False
     content_checksum: bool = False
+    verify: bool = True  # check device encodes with the host verify walk (collision guard)
 
     def frame_info(self) -> FrameInfo:
         return FrameInfo(
@@ -45,12 +46,13 @@ class LZ4Codec:
         self.device = device
 
     def compress(self, data) -> bytes:
-        """Compress ``data`` into one LZ4 frame on the device. Blocks under
-        448 KiB (the 64 and 256 KiB sizes, including the default config's)
-        raise NotImplementedError until the all-device encoder is ported."""
+        """Compress ``data`` into one LZ4 frame on the device (64 and 256 KiB
+        blocks through the all-device encoder, larger ones through the
+        hybrid encoder)."""
         from ..frame.device import compress_frame_device
 
-        return compress_frame_device(data, self.config.frame_info(), device=self.device)
+        return compress_frame_device(data, self.config.frame_info(), device=self.device,
+                                     verify=self.config.verify)
 
     def decompress(self, data) -> bytes:
         """Decompress every concatenated LZ4 frame in ``data``."""
@@ -58,11 +60,38 @@ class LZ4Codec:
 
         return decompress_frame_device(data, device=self.device)
 
+    def compress_block(self, data, ext_dict=b"") -> bytes:
+        """Compress one raw LZ4 block with the all-device encoder."""
+        from ..ops.encode import compress_block_device
+
+        return compress_block_device(data, ext_dict, verify=self.config.verify, device=self.device)
+
     def decompress_block(self, data, max_output_size: int, ext_dict=b"") -> bytes:
         """Decompress one raw LZ4 block."""
         from ..ops.decode import decode_block_device
 
         return decode_block_device(data, max_output_size, ext_dict, device=self.device)
+
+    def encode_step(self, block_bytes, dict_lens, total_lens):
+        """Batched block encode on the codec's device: (B, S) uint8 rows
+        (dict ++ data, zero padded; S a multiple of 4) and their (B,)
+        dictionary and dictionary + data lengths -> ((B, C) uint8 payloads,
+        zero past each end, and (B,) int32 lengths), C the size bucket of the
+        worst-case payload of S bytes. Tensors (or arrays) go to the device;
+        the outputs stay there. No verify walk runs here: the payloads are
+        the device encoder's own."""
+        import torch
+
+        from ..ops.ringdecode import resolve_device
+        from ..parallel.pipeline import _encode_batch, encode_geometry
+
+        dev = resolve_device(self.device)
+        rows = torch.as_tensor(block_bytes, dtype=torch.uint8).to(dev)
+        width = rows.shape[1]
+        words = packing.bytes_to_words(rows).reshape(rows.shape[0], width // 4)
+        return _encode_batch(rows, words, torch.as_tensor(dict_lens).to(dev),
+                             torch.as_tensor(total_lens).to(dev),
+                             **encode_geometry(width, width))
 
     def decode_step(self, comp_bytes, comp_lens):
         """Batched independent-block decode on the codec's device: (B, C)

@@ -1,8 +1,8 @@
 """ctypes bindings for the port's copy of the native host runtime
 (lz4_native.cpp): the ring-plan builder, the token-walk decoder, the
-size-only measure walk, the sequence parser, xxHash32, the
-block encoder with its carried match table, and the hybrid encoder's host
-walks over device candidate planes.
+size-only measure walk and verify walk, the sequence parser, xxHash32, the
+block encoder with its carried (or dictionary-seeded) match table, and the
+hybrid encoder's host walks over device candidate planes.
 
 The shared library is compiled with g++ at first use into the checkout's
 ``build/`` directory, keyed by a hash of the source, so a fresh checkout
@@ -94,6 +94,8 @@ def _lib() -> ctypes.CDLL:
         with _LOCK:
             if _LIB is None:
                 lib = ctypes.CDLL(_build())
+                lib.tlz4_init_dict_table.restype = None
+                lib.tlz4_init_dict_table.argtypes = [_u64p, _u8p, ctypes.c_size_t, ctypes.c_int]
                 lib.tlz4_compress_block.restype = ctypes.c_int64
                 lib.tlz4_compress_block.argtypes = [
                     _u8p, ctypes.c_size_t, ctypes.c_size_t,
@@ -129,6 +131,10 @@ def _lib() -> ctypes.CDLL:
                 ]
                 lib.tlz4_measure_block.restype = ctypes.c_int64
                 lib.tlz4_measure_block.argtypes = [_u8p, ctypes.c_size_t]
+                lib.tlz4_verify_block.restype = ctypes.c_int64
+                lib.tlz4_verify_block.argtypes = [
+                    _u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t, _u8p, ctypes.c_size_t,
+                ]
                 lib.tlz4_parse_sequences.restype = ctypes.c_int64
                 lib.tlz4_parse_sequences.argtypes = [
                     _u8p, ctypes.c_size_t,
@@ -195,6 +201,14 @@ def _compress_too_small():
     return CompressOutputTooSmall()
 
 
+def init_dict_table(table: np.ndarray, ext_dict, use_hash5: bool) -> None:
+    """Seed a match table with the positions of a dictionary, for an encode
+    that reaches into it (``compress_block(..., ext_dict=..., table=...)``)."""
+    _check_table(table)
+    d = as_u8(ext_dict)
+    _lib().tlz4_init_dict_table(table.ctypes.data_as(_u64p), _ptr(d), d.size, int(use_hash5))
+
+
 def compress_block(
     data,
     ext_dict=b"",
@@ -202,15 +216,18 @@ def compress_block(
     input_stream_offset: int | None = None,
     table: np.ndarray | None = None,
     use_hash5: bool | None = None,
-) -> bytes:
+    out: np.ndarray | None = None,
+) -> bytes | int:
     """Greedy block encode of ``data[input_pos:]`` against an optional
     dictionary (the previous 64 KiB of a linked frame).
 
-    The parameters are the JAX package's ``native.compress_block`` (less
-    its ``out`` buffer), with ``ext_dict`` second so that ``compress_block(data, dic)`` reads as
+    The parameters are the JAX package's ``native.compress_block``, with
+    ``ext_dict`` second so that ``compress_block(data, dic)`` reads as
     before. A streaming encoder keeps the window in ``data[:input_pos]``
     and carries ``table`` (see :func:`new_table`) across blocks, with
-    ``input_stream_offset`` the stream position of ``data[0]``."""
+    ``input_stream_offset`` the stream position of ``data[0]``. Returns the
+    bytes, or, given a contiguous uint8 ``out`` buffer, writes them there
+    and returns their count."""
     src = as_u8(data)
     dic = as_u8(ext_dict)
     if not 0 <= input_pos <= src.size:
@@ -222,7 +239,10 @@ def compress_block(
     if table is None:
         table = new_table()
     _check_table(table)
-    out = np.empty(compress_bound(src.size - input_pos), dtype=np.uint8)
+    return_bytes = out is None
+    if return_bytes:
+        out = np.empty(compress_bound(src.size - input_pos), dtype=np.uint8)
+    out = _c_array(out, np.uint8, "out")
     n = _lib().tlz4_compress_block(
         _ptr(src), src.size, input_pos,
         _ptr(out), out.size,
@@ -232,7 +252,7 @@ def compress_block(
     )
     if n < 0:
         raise _compress_too_small()
-    return out[:n].tobytes()
+    return out[:n].tobytes() if return_bytes else int(n)
 
 
 def _c_array(arr: np.ndarray, dtype, name: str) -> np.ndarray:
@@ -345,6 +365,16 @@ def measure_block(data) -> int:
     if n < 0:
         _raise_decompress_error(int(n), 0, 0)
     return int(n)
+
+
+def verify_block(comp, ref, ext_dict=b"") -> bool:
+    """True when ``comp`` decodes (against ``ext_dict``) to exactly ``ref``,
+    checked in one token walk that writes nothing: the guard of the device
+    encoder, whose fingerprinted match lengths may, on a collision, claim a
+    match that is not there."""
+    src, refa, dic = as_u8(comp), as_u8(ref), as_u8(ext_dict)
+    return _lib().tlz4_verify_block(
+        _ptr(src), src.size, _ptr(refa), refa.size, _ptr(dic), dic.size) >= 0
 
 
 def _raise_decompress_error(code: int, expected: int, actual: int):

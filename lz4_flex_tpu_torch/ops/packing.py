@@ -51,10 +51,26 @@ def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
 
 def gather_bytes(words: torch.Tensor, byte_idx: torch.Tensor) -> torch.Tensor:
     """Bytes at ``byte_idx`` of a packed word buffer (int32), the indices
-    clamped to the buffer: a word gather and a shift."""
-    idx = byte_idx.clamp(0, words.shape[0] * 4 - 1)
-    w = words[idx >> 2]
+    clamped to the buffer: a word gather and a shift. A batch of buffers,
+    (B, W) words, takes (B, ...) indices, each row into its own buffer."""
+    idx = byte_idx.clamp(0, words.shape[-1] * 4 - 1)
+    w = words[idx >> 2] if words.dim() == 1 else torch.gather(words, -1, (idx >> 2).long())
     return (w >> ((idx & 3) * 8)) & 0xFF
+
+
+def gather_words_unaligned(words: torch.Tensor, byte_idx: torch.Tensor) -> torch.Tensor:
+    """The 4-byte little-endian values starting at arbitrary byte offsets of
+    a packed word buffer (int32 bit patterns in, int32 bit patterns out):
+    two aligned word gathers and a funnel shift, the offsets clamped so that
+    all four bytes lie in the buffer."""
+    nw = words.shape[0]
+    idx = byte_idx.clamp(0, nw * 4 - 4)
+    lo = words[idx >> 2].to(torch.int64) & 0xFFFFFFFF
+    hi = words[((idx >> 2) + 1).clamp(0, nw - 1)].to(torch.int64) & 0xFFFFFFFF
+    sh = (idx & 3).to(torch.int64) * 8
+    # sh == 0 takes no bits of hi (a shift by 32 is masked out, as in JAX)
+    w = (lo >> sh) | torch.where(sh == 0, 0, (hi << (32 - sh)) & 0xFFFFFFFF)
+    return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
 def doubling_scan(x: torch.Tensor, fn) -> torch.Tensor:
@@ -71,8 +87,8 @@ def doubling_scan(x: torch.Tensor, fn) -> torch.Tensor:
 
 
 def tiled_scan(kind: str, x: torch.Tensor, *, reverse: bool = False) -> torch.Tensor:
-    """Inclusive cumulative scan ("sum", "max" or "min") of a 1-D tensor,
-    in its own dtype (an int32 sum wraps as the JAX package's does).
+    """Inclusive cumulative scan ("sum", "max" or "min") along the last dim,
+    in the tensor's own dtype (an int32 sum wraps as the JAX package's does).
 
     The JAX package tiles the scan to dodge an XLA:TPU compile-time trap;
     here the name stays so the two read side by side. A sum is
@@ -80,9 +96,9 @@ def tiled_scan(kind: str, x: torch.Tensor, *, reverse: bool = False) -> torch.Te
     ``cummax``/``cummin`` scan one long row in one slow kernel (33 ms over
     12.6 M int32 on an H100, PERF.md)."""
     if reverse:
-        return tiled_scan(kind, x.flip(0)).flip(0)
+        return tiled_scan(kind, x.flip(-1)).flip(-1)
     if kind == "sum":
-        return torch.cumsum(x, 0).to(x.dtype)
+        return torch.cumsum(x, -1).to(x.dtype)
     if kind == "max":
         return doubling_scan(x, torch.maximum)
     if kind == "min":

@@ -1,6 +1,7 @@
 """The ring kernel and the probes' kernels on the card against their plain
-PyTorch versions, the fallback decode engines (torch ops) on the card
-against their CPU run, and the entry points with their default device.
+PyTorch versions, the fallback decode engines and the all-device encoder
+(torch ops) on the card against their CPU run, and the entry points with
+their default device.
 These tests need a CUDA card of
 compute capability 9.0+ and skip without one; they import no JAX, so on a
 machine without it they run with
@@ -232,8 +233,88 @@ def test_device_frame_encode_equals_cpu_run(card):
         enc.write(data)
     assert buf.getvalue() == f
     assert frame.FrameDecoder(io.BytesIO(f), engine="device").read_all() == data
-    with pytest.raises(NotImplementedError, match="item 6"):
-        LZ4Codec().compress(data)
+    # the default config: 64 KiB independent blocks, the all-device encoder
+    got = LZ4Codec().compress(data)
+    assert got == LZ4Codec(device="cpu").compress(data)
+    assert frame.FrameDecoder(io.BytesIO(got), engine="device").read_all() == data
+
+
+@pytest.mark.parametrize("name", ["word_soup", "periodic_ring_boundary", "incompressible", "rle"])
+def test_device_encoder_programs_equal_cpu_run(card, name):
+    data = block_inputs()[name][:60000]
+    dic = word_soup(5000, seed=38)
+    width = 98304
+    rows = np.zeros((2, width), np.uint8)
+    rows[0, : len(data)] = np.frombuffer(data, np.uint8)
+    rows[1, : len(dic) + len(data)] = np.frombuffer(dic + data, np.uint8)
+    lens = np.array([[0, len(dic)], [len(data), len(dic) + len(data)]], np.int32)
+    geo = dict(levels=12, nseq_pad=packing.size_bucket(width // 4 + 2, minimum=256))
+    _same(*_on_both(card, lambda r, d, t: E.match_core(r, d, t, **geo), [rows, lens[0], lens[1]]))
+    comp_pad = packing.size_bucket(native.compress_bound(65536))
+    got, want = _on_both(card, lambda r, d, t: E.encode_chunk_core(r, r.view(torch.int32), d, t,
+                                                                   comp_pad=comp_pad, **geo),
+                         [rows, lens[0], lens[1]])
+    _same(got, want)
+    assert native.decompress_block(got[0][1, : int(got[1][1])].cpu().numpy().tobytes(), len(data),
+                                   dic) == data
+
+
+def test_compress_block_device_equals_cpu_run(card):
+    # word_soup(1200000, seed=41) meets a fingerprint collision past its
+    # first chunk boundary (the JAX package writes the same raw bytes): its
+    # raw wire fails the verify walk and the guard takes the host encoder's.
+    dic = word_soup(70000, seed=39)
+    before = dict(E.stats)
+    for data, ext in ((word_soup(300000, seed=40), b""), (word_soup(300000, seed=40), dic),
+                      (word_soup(1200000, seed=41), b""), (word_soup(1000000, seed=42), dic)):
+        raw = E.compress_block_device(data, ext, verify=False)
+        assert raw == E.compress_block_device(data, ext, verify=False, device="cpu")
+        got = E.compress_block_device(data, ext)
+        assert got == E.compress_block_device(data, ext, device="cpu")
+        assert (got == raw) == native.verify_block(raw, data, ext[-65536:])
+        arr, n = E.compress_block_device(data, ext, as_array=True)
+        assert arr.device.type == "cuda" and arr[:n].cpu().numpy().tobytes() == got
+        assert decode_block_device(got, len(data), ext_dict=ext[-65536:]) == data
+        assert native.verify_block(got, data, ext[-65536:])
+    assert E.stats["plane_quads"] == before["plane_quads"]
+    assert E.stats["verify_fallbacks"] == before["verify_fallbacks"] + 3  # the collision, 3 calls
+
+
+def test_small_block_frames_equal_cpu_run(card):
+    data = word_soup(900000, seed=43)
+    for size in (frame.BlockSize.Max64KB, frame.BlockSize.Max256KB):
+        fi = dict(block_size=size, block_mode=frame.BlockMode.Linked, block_checksums=True,
+                  content_checksum=True)
+        f = frame.compress_frame_device(data, frame.FrameInfo(**fi))
+        assert f == frame.compress_frame_device(data, frame.FrameInfo(**fi), device="cpu")
+        buf = io.BytesIO()
+        with frame.FrameEncoder(buf, frame.FrameInfo(**fi), engine="device") as enc:
+            enc.write(data)
+        assert buf.getvalue() == f
+        assert decompress_frame_device(f) == data
+    rows = np.zeros((3, 98304), np.uint8)
+    for i in range(3):
+        rows[i, :65536] = np.frombuffer(data[i * 65536 : (i + 1) * 65536], np.uint8)
+    lens = [[0, 0, 0], [65536, 65536, 65536]]
+    out, total = LZ4Codec().encode_step(rows, *lens)
+    assert out.device.type == "cuda"
+    want = LZ4Codec(device="cpu").encode_step(rows, *lens)
+    _same((out, total), want)
+    assert LZ4Codec().compress_block(data[:300000]) == E.compress_block_device(data[:300000], device="cpu")
+
+
+def test_encode_blocks_groups_equal_cpu_run(card, monkeypatch):
+    # three rows a dispatch: 14 blocks are five groups, each uploaded and
+    # read back through pinned host memory while the next one is queued
+    from lz4_flex_tpu_torch.parallel import pipeline as PP
+
+    data = word_soup(900000, seed=44)
+    monkeypatch.setattr(PP, "_ENCODE_ROWS", 3)
+    for linked in (False, True):
+        before = E.stats["match_calls"]
+        got = PP.encode_blocks(data, 65536, linked=linked)
+        assert E.stats["match_calls"] == before + 5
+        assert got == PP.encode_blocks(data, 65536, linked=linked, device="cpu")
 
 
 @pytest.mark.parametrize("variant", GP.VARIANTS)

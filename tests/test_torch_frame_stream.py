@@ -3,8 +3,9 @@
 FrameEncoder on the host engine writes the JAX host encoder's bytes for the
 same writes; compress_frame_device and FrameEncoder(engine="device") write
 the bytes of the JAX package on a one-device mesh (8 virtual devices would
-take the all-device route) at the block sizes the one-card route serves, and
-64/256 KiB blocks raise. FrameDecoder returns the input on both engines over
+take the all-device route for every block size) at every block size: 64 and
+256 KiB blocks through the all-device encoder, larger ones through the
+hybrid encoder. FrameDecoder returns the input on both engines over
 the scenarios of tests/test_frame_stream_device.py, with the device engine's
 pipelined and synchronous paths and its batch budgets. Tolerance: exact."""
 
@@ -166,15 +167,20 @@ def test_codec_compress_equals_jax():
 
 @pytest.mark.parametrize("size", [BlockSize.Max64KB, BlockSize.Max256KB])
 def test_small_device_blocks_raise(size):
-    fi = _pfi(block_size=size)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        compress_frame_device(SOUP, fi, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        FrameEncoder(io.BytesIO(), _pfi(block_size=size), engine="device", device="cpu").write(b"x")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        encode_blocks(SOUP, size.get_size(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        LZ4Codec(device="cpu").compress(SOUP)  # the default config's 64 KiB blocks
+    # These blocks raised NotImplementedError until the all-device encoder
+    # was ported; now every device entry point writes the JAX package's bytes.
+    from lz4_flex_tpu.frame.device import compress_frame_device as ref_compress
+    from lz4_flex_tpu.parallel.pipeline import encode_blocks_sharded
+
+    want = ref_compress(SOUP, FrameInfo(block_size=size), mesh=_mesh1())
+    assert compress_frame_device(SOUP, _pfi(block_size=size), device="cpu") == want
+    assert _stream(FrameEncoder, _pfi(block_size=size), SOUP, engine="device", device="cpu") == want
+    payloads, lens, window = encode_blocks(SOUP, size.get_size(), device="cpu")
+    assert (payloads, lens) == encode_blocks_sharded(SOUP, size.get_size(), mesh=_mesh1())
+    assert window == b""
+    if size == BlockSize.Max64KB:
+        assert LZ4Codec(device="cpu").compress(SOUP) == want  # the default config
+    assert frame.decompress(want) == SOUP
 
 
 def test_encode_blocks_linked_carry():

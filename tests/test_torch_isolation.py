@@ -99,7 +99,7 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     from lz4_flex_tpu_torch.ops import encode as E
     from lz4_flex_tpu_torch.ops import ringdecode as R
     from lz4_flex_tpu_torch.ops.decode import decode_block_device, decode_parts_fused
-    from lz4_flex_tpu_torch.ops.encode import compress_block_hybrid
+    from lz4_flex_tpu_torch.ops.encode import compress_block_device, compress_block_hybrid
     from lz4_flex_tpu_torch.ops.parse import parse_sequences_device
     from lz4_flex_tpu_torch.parallel.pipeline import encode_blocks
 
@@ -129,6 +129,14 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         lambda: encode_blocks(data, 1 << 20),
         lambda: LZ4Codec(CodecConfig(block_size=BlockSize.Max1MB)).compress(data),
         lambda: LZ4Codec().compress(data),
+        lambda: compress_block_device(data),
+        lambda: compress_block_device(data * 400, device="cuda"),
+        lambda: LZ4Codec().compress_block(data),
+        lambda: LZ4Codec().encode_step(np.zeros((2, 4096), np.uint8), [0, 0], [100, 0]),
+        lambda: encode_blocks(data, 65536),
+        lambda: compress_frame_device(data),
+        lambda: FrameEncoder(io.BytesIO(), FrameInfo(block_size=BlockSize.Max256KB),
+                             engine="device").write(data),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
