@@ -85,9 +85,28 @@ Phases (any failure raises and the exit code is not 0):
    times, end to end beside ``compress_block_hybrid`` and
    ``native.compress_block``, peak device memory, device busy share and
    top kernels.
+10. The mesh layer on one card, a mesh's entries repeating ``cuda:0`` (N
+   device groups on the card), and the CLI. At N=1 every mesh entry point
+   (``encode_blocks_sharded`` at 64 KiB and 1 MiB, ``compress_frame_device``,
+   ``decompress_frame_device`` of the default codec's 160-block frame,
+   ``LZ4Codec``, ``FrameEncoder(engine="device")``) gives the bytes of the
+   run without a mesh, decoded back by the native decoder. At N=4 and 8,
+   ``decode_blocks_sharded`` and ``decompress_frame_device`` of that frame
+   each launch K1c once (counters set to 0 just before), with no overflow
+   and no resident fallback; each group's plan through K1c is held against
+   ``ring_decode_grouped_reference`` (byte-exact); 1 MiB blocks take
+   ``compress_block_device`` per block, N=4's bytes equal N=8's and decode
+   back. A forced overflow at N=2 (8 blocks of 64 KiB) decodes byte-exact
+   through ``_decode_blocks_sharded_resident`` with no K1 launch and the host
+   decoder refusing; ``roundtrip_step_sharded`` at N=2 returns ok. Times: K1a
+   on the frame as one plan and K1c at G=1, 4 and 8 in turns (CUDA events,
+   median of 20) beside their bytes bounds, the plan-build wall at G=1, 4
+   and 8, and end to end beside the one-card path. The CLI with ``--engine
+   device`` as subprocesses: a 4 MiB pipe and file roundtrip, its frames
+   equal to ``compress_frame_device``'s and read back by the host engine.
    Then one JSON line ``{"kernels": ...}`` whose ``max_abs_err`` covers every
-   comparison and whose K1 launches count every path of phases 3, 6, 7 and
-   9.
+   comparison and whose K1 and K1c launches count every path of phases 3,
+   6, 7, 9 and 10.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -286,7 +305,7 @@ def main() -> None:
             out += struct.pack("<I", xxh32(data))
         return bytes(out), parts
 
-    launches = {"ring_decode": 0, "ring_decode+checksum": 0}
+    launches = {"ring_decode": 0, "ring_decode+checksum": 0, "ring_decode_grouped": 0}
 
     def main_path(label: str, fn) -> dict:
         for k in R.stats:
@@ -294,10 +313,12 @@ def main() -> None:
         fn()
         torch.cuda.synchronize()
         s = dict(R.stats)
-        launches["ring_decode"] += s["kernel_launches"] - s["checksum_launches"]
+        launches["ring_decode"] += s["kernel_launches"] - s["checksum_launches"] - s["grouped_launches"]
         launches["ring_decode+checksum"] += s["checksum_launches"]
+        launches["ring_decode_grouped"] += s["grouped_launches"]
         print(f"  {label:44s} ok, counts {s}", flush=True)
-        if s["kernel_launches"] == 0 or s["overflow_fused_decodes"] or s["overflow_splits"]:
+        if (s["kernel_launches"] == 0 or s["overflow_fused_decodes"] or s["overflow_splits"]
+                or s["overflow_sharded_decodes"]):
             raise SystemExit(f"chip_smoke: {label} did not run through the kernel: {s}")
         return s
 
@@ -1101,6 +1122,233 @@ def main() -> None:
     device_busy(lambda: E.compress_block_device(data), "compress_block_device (resident)", top=6)
     print(f"  phase 9 took {time.perf_counter() - t_phase9:.1f} s", flush=True)
 
+    # ---- 10. the mesh layer on one card, and the CLI ------------------------------------
+    print(f"phase 10: the mesh layer on one card (mesh entries repeat cuda:0) and the CLI "
+          f"(tolerance: byte-exact; K1c against its plain version: max_abs_err must be 0) "
+          f"[{card}]", flush=True)
+    t_phase10 = time.perf_counter()
+    from lz4_flex_tpu_torch import cli
+    from lz4_flex_tpu_torch.frame import compress_frame_device
+    from lz4_flex_tpu_torch.parallel import codec_mesh
+
+    def mesh_of(k: int):
+        return codec_mesh(["cuda:0"] * k)
+
+    # The default codec's frame of phase 9: 160 independent 64 KiB blocks.
+    fi_default = CodecConfig().frame_info()  # 64 KiB independent blocks
+    payloads160 = []
+    pos = len(fi_default.write())
+    while True:
+        info = BlockInfo.read(f_default[pos : pos + 4])
+        pos += 4
+        if info.kind is BlockInfoKind.EndMark:
+            break
+        if info.kind is not BlockInfoKind.Compressed:
+            raise SystemExit("chip_smoke: the default codec's frame holds a stored block")
+        payloads160.append(f_default[pos : pos + info.size])
+        pos += info.size
+    if len(payloads160) != 160:
+        raise SystemExit(f"chip_smoke: the default codec's frame has {len(payloads160)} blocks")
+
+    def native_back(payloads, lens, label: str) -> None:
+        same(b"".join(native.decompress_block(p, m) for p, m in zip(payloads, lens)), data, label)
+
+    # N=1: every mesh entry point gives the bytes of the run without a mesh
+    m1 = mesh_of(1)
+    for bs in (65536, MIB):
+        got = PP.encode_blocks_sharded(data, bs, mesh=m1)
+        if got != PP.encode_blocks(data, bs)[:2]:
+            raise SystemExit(f"chip_smoke: encode_blocks_sharded N=1 at {bs} differs from encode_blocks")
+        native_back(*got, f"encode_blocks_sharded N=1 at {bs}")
+    for label, fi in (("64 KiB", fi_default), ("1 MiB linked", FrameInfo(
+            block_size=BlockSize.Max1MB, block_mode=BlockMode.Linked, content_checksum=True))):
+        f = compress_frame_device(data, fi, mesh=m1)
+        same(f, compress_frame_device(data, fi), f"compress_frame_device(mesh=) N=1, {label}")
+        same(F.decompress(f), data, f"compress_frame_device(mesh=) N=1, {label}, host read")
+    same(LZ4Codec(CodecConfig(), m1).compress(data), f_default, "LZ4Codec(mesh=) N=1")
+    buf = io.BytesIO()
+    with F.FrameEncoder(buf, fi_default, engine="device", mesh=m1) as enc:
+        for i in range(0, n, 3 * MIB + 12345):
+            enc.write(data[i : i + 3 * MIB + 12345])
+    same(buf.getvalue(), f_default, "FrameEncoder(engine='device', mesh=) N=1")
+    for label, fn in (("decompress_frame_device(mesh=) N=1",
+                       lambda: decompress_frame_device(f_default, mesh=m1)),
+                      ("LZ4Codec(mesh=).decompress N=1",
+                       lambda: LZ4Codec(mesh=m1).decompress(f_default))):
+        s = main_path(label, lambda: expect(fn(), label))
+        if s["grouped_launches"] != 1:
+            raise SystemExit(f"chip_smoke: {label}: {s}")
+
+    # N=4 and 8: one K1c launch a decode, each group's plan held against the plain version
+    max_err["ring_decode_grouped"] = 0
+
+    def stacked_plans(g: int):
+        """The 160 blocks in g groups, as decode_blocks_sharded_ring stages
+        them: (staged groups, the stacked plan tensors on the card)."""
+        per = -(-len(payloads160) // g)
+        staged = PP.stage_ring_groups([payloads160[i * per : (i + 1) * per] for i in range(g)], 65536)
+        if staged is None:
+            raise SystemExit(f"chip_smoke: a group's plan overflowed at G={g}")
+        staged = [st for st in staged if st and st[0]]
+        arrs = PP.stack_ring_plans([st[0] for st in staged], R.TILE_ROWS)
+        return staged, [torch.from_numpy(a).cuda() for a in arrs]
+
+    def grouped_bytes(staged) -> int:
+        """Bytes K1c must move for these plans, unpadded, as FP.plan_bytes
+        counts a plan's: literal images, the fires' records, nf_tot, output."""
+        tot = 0
+        for (nft, init, f0, _, _), _ in staged:
+            fires = int(np.minimum(nft, f0.shape[1]).sum())
+            tot += 2 * init.nbytes + fires * R.RB * 12 + nft.nbytes
+        return tot
+
+    grouped = {}
+    for g in (1, 4, 8):
+        staged, ts = stacked_plans(g)
+        out = R.ring_decode_grouped(*ts, tile_rows=R.TILE_ROWS)
+        ref = R.ring_decode_grouped_reference(*ts, tile_rows=R.TILE_ROWS)
+        torch.cuda.synchronize()
+        e = int((out.int() - ref.int()).abs().max())
+        max_err["ring_decode_grouped"] = max(max_err["ring_decode_grouped"], e)
+        host = out.cpu().numpy()
+        got = b"".join(host[k].reshape(-1)[: sum(st[1])].tobytes() for k, st in enumerate(staged))
+        print(f"  K1c G={g}: grid {ts[0].shape[0]}, plan shape (ntiles {ts[4].shape[1]}, nf "
+              f"{ts[1].shape[2]}), fires {int(ts[4].sum())}, max_abs_err {e}, bytes "
+              f"{'exact' if got == data else 'WRONG'}", flush=True)
+        if e or got != data:
+            raise SystemExit(f"chip_smoke: K1c and its plain version disagree at G={g}")
+        grouped[g] = dict(staged=staged, ts=ts, bound=grouped_bytes(staged) / FP.HBM_BYTES_PER_S * 1e3)
+    for k in (4, 8):
+        mk = mesh_of(k)
+        for label, fn in ((f"decode_blocks_sharded N={k}",
+                           lambda: b"".join(PP.decode_blocks_sharded(payloads160, 65536, mesh=mk))),
+                          (f"decompress_frame_device(mesh=) N={k}",
+                           lambda: decompress_frame_device(f_default, mesh=mk))):
+            s = main_path(label, lambda: expect(fn(), label))
+            if s["grouped_launches"] != 1 or s["kernel_launches"] != 1:
+                raise SystemExit(f"chip_smoke: {label} took {s}, not one K1c launch")
+    enc_1m = {}
+    for k in (4, 8):
+        for key in E.stats:
+            E.stats[key] = 0
+        t0 = time.perf_counter()
+        enc_1m[k] = PP.encode_blocks_sharded(data, MIB, mesh=mesh_of(k))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = dict(E.stats)
+        print(f"  encode_blocks_sharded N={k} at 1 MiB: {ms:.1f} ms, ratio "
+              f"{sum(map(len, enc_1m[k][0])) / n:.4f}, counts {st} [{card}]", flush=True)
+        if st["match_calls"] == 0 or st["plane_quads"] or st["candidate_calls"] or st["verify_fallbacks"]:
+            raise SystemExit(f"chip_smoke: 1 MiB blocks at N={k} did not take compress_block_device: {st}")
+    if enc_1m[4] != enc_1m[8]:
+        raise SystemExit("chip_smoke: 1 MiB blocks at N=4 and N=8 differ")
+    native_back(*enc_1m[4], "encode_blocks_sharded at 1 MiB, N=4")
+    if enc_1m[4][0] == PP.encode_blocks(data, MIB)[0]:
+        raise SystemExit("chip_smoke: 1 MiB blocks took the same route at N=1 and N=4")
+
+    # forced overflow at N=2: the resident decoder, with no K1 launch and no host decode
+    p8 = payloads160[:8]
+    saved = (R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0], native.decompress_block)
+    R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0], native.decompress_block = (1,), 1, 1, refuse
+    try:
+        for key in R.stats:
+            R.stats[key] = 0
+        t0 = time.perf_counter()
+        got = PP.decode_blocks_sharded(p8, 65536, mesh=mesh_of(2))
+        torch.cuda.synchronize()
+        ov_ms = (time.perf_counter() - t0) * 1e3
+        s = dict(R.stats)
+    finally:
+        R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0], native.decompress_block = saved
+    same(b"".join(got), data[: 8 * 65536], "forced overflow, decode_blocks_sharded N=2")
+    print(f"  forced overflow, decode_blocks_sharded N=2 (8 x 64 KiB): byte-exact, {ov_ms:.3f} ms, "
+          f"counts {s} [{card}]", flush=True)
+    if s["overflow_sharded_decodes"] != 1 or s["kernel_launches"]:
+        raise SystemExit(f"chip_smoke: forced overflow at N=2: {s}")
+    t0 = time.perf_counter()
+    comp8, lens8, offs8, ok8 = PP.roundtrip_step_sharded(data[: 8 * 65536], 65536, mesh=mesh_of(2))
+    ok8 = bool(ok8)
+    rt_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  roundtrip_step_sharded N=2 (8 x 64 KiB): ok {ok8}, {rt_ms:.1f} ms [{card}]", flush=True)
+    if not ok8 or int(offs8[-1] + lens8[-1]) != int(lens8.sum()):
+        raise SystemExit("chip_smoke: roundtrip_step_sharded at N=2 failed")
+
+    # times: K1a on the frame as one plan and K1c at G=1, 4, 8, in turns
+    fplan, _ = R.build_ring_plan_parts([(p, True) for p in payloads160], n, independent=True)
+    fts = R.ring_plan_device_tensors(fplan, "cuda")
+    torch.cuda.synchronize()
+    fns = {"K1a": lambda: R.ring_decode(*fts, tile_rows=R.TILE_ROWS)}
+    for g in (1, 4, 8):
+        fns[f"K1c G={g}"] = lambda g=g: R.ring_decode_grouped(*grouped[g]["ts"], tile_rows=R.TILE_ROWS)
+    order = list(fns) + list(reversed(fns))
+    turns = {k: [] for k in fns}
+    for name in order:
+        turns[name].append(kernel_ms(fns[name]))
+    k_ms = {k: statistics.mean(v) for k, v in turns.items()}
+    plain_g8 = cuda_host_ms(lambda: R.ring_decode_grouped_reference(*grouped[8]["ts"],
+                                                                    tile_rows=R.TILE_ROWS), 3)
+    print(f"  in turns ({' '.join(order)}): " + ", ".join(
+        f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms" for k, v in turns.items()) + f" [{card}]")
+    print(f"  K1a (one plan of {fplan.ntiles} tiles) {k_ms['K1a']:.4f} ms, bound "
+          f"{FP.bound_ms(fplan):.5f} ms; " + "; ".join(
+              f"K1c G={g} {k_ms[f'K1c G={g}']:.4f} ms, bound {grouped[g]['bound']:.5f} ms"
+              for g in (1, 4, 8)) + f"; G=8/G=1 {k_ms['K1c G=8'] / k_ms['K1c G=1']:.4f}; plain "
+          f"version at G=8 {plain_g8:.2f} ms [{card}]", flush=True)
+    build_ms = {}
+    for g in (1, 4, 8):
+        per = -(-len(payloads160) // g)
+        groups = [payloads160[i * per : (i + 1) * per] for i in range(g)]
+        build_ms[g] = host_ms(lambda: PP.stage_ring_groups(groups, 65536), 10)
+    parts160 = [(p, True) for p in payloads160]
+    walk_ms = host_ms(lambda: R.part_sizes(parts160), 10)
+    one_ms = {t: host_ms(lambda: R.build_ring_plan_parts(parts160, n, independent=True, nthreads=t), 10)
+              for t in (0, 1)}
+    print(f"  of the G=1 stage: size walks {walk_ms:.3f} ms, the plan build {one_ms[0]:.3f} ms on "
+          f"the native pool's lanes, {one_ms[1]:.3f} ms on one lane [{card}]", flush=True)
+    e2e_mesh = {k: host_ms(lambda: decompress_frame_device(f_default, mesh=mesh_of(k)), 5)
+                for k in (1, 4, 8)}
+    e2e_one = host_ms(lambda: decompress_frame_device(f_default), 5)
+    print(f"  plan-build wall (stage_ring_groups, {os.cpu_count()} host cores): " + ", ".join(
+        f"G={g} {v:.3f} ms" for g, v in build_ms.items()) + f"; decompress_frame_device of the "
+          f"160-block frame: one card, no mesh {e2e_one:.3f} ms; " + ", ".join(
+              f"mesh N={k} {v:.3f} ms" for k, v in e2e_mesh.items()) + f" [{card}]", flush=True)
+
+    # the CLI with --engine device, as a user runs it
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    data4 = data[: 4 * MIB]
+
+    def run_cli(*args, stdin: bytes | None = None) -> bytes:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "lz4_flex_tpu_torch.cli", *args], input=stdin,
+                           capture_output=True, cwd=root, env=env, timeout=300)
+        if r.returncode:
+            raise SystemExit(f"chip_smoke: the CLI {args} failed: {r.stderr.decode()[-2000:]}")
+        print(f"  cli {' '.join(args)}: {(time.perf_counter() - t0) * 1e3:.1f} ms (process "
+              f"included) [{card}]", flush=True)
+        return r.stdout
+
+    piped = run_cli("--engine", "device", stdin=data4)
+    same(piped, compress_frame_device(data4), "CLI pipe against compress_frame_device")
+    same(F.decompress(piped), data4, "CLI pipe, host read")
+    same(run_cli("-d", "--engine", "device", stdin=piped), data4, "CLI pipe roundtrip")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "soup.txt")
+        with open(src, "wb") as fh:
+            fh.write(data4)
+        run_cli(src, "-f", "--engine", "device", "--block-size", "Max64KB", "--content-checksum")
+        with open(src + ".lz4", "rb") as fh:
+            filed = fh.read()
+        fi64 = FrameInfo(block_size=BlockSize.Max64KB, content_checksum=True)
+        same(filed, compress_frame_device(data4, fi64), "CLI file against compress_frame_device")
+        same(F.decompress(filed), data4, "CLI file, host read")
+        run_cli(src + ".lz4", "-f", "-o", src + ".back", "--engine", "device")
+        with open(src + ".back", "rb") as fh:
+            same(fh.read(), data4, "CLI file roundtrip")
+    print(f"  phase 10 took {time.perf_counter() - t_phase10:.1f} s", flush=True)
+
     main = results[R.TILE_ROWS]
     kernels = [
         {"name": "ring_decode", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
@@ -1112,6 +1360,12 @@ def main() -> None:
          "max_abs_err": max_err["ring_decode+checksum"], "ms": main["ms_b"],
          "plain_ms": main["plain_b"], "bound_ms": main["bound_b"], "bound_by": "bytes",
          "library_ms": None},
+        # K1c at G=8, the largest grid of phase 10's main paths
+        {"name": "ring_decode_grouped", "route": "cuda", "source": SOURCE,
+         "replaces": "lz4_flex_tpu/parallel/pipeline.py:444",
+         "launches": launches["ring_decode_grouped"], "max_abs_err": max_err["ring_decode_grouped"],
+         "ms": k_ms["K1c G=8"], "plain_ms": plain_g8, "bound_ms": grouped[8]["bound"],
+         "bound_by": "bytes", "library_ms": None},
     ]
     # Fire probe entries: the 10 MiB bench soup at the main path's tile height.
     for r in fres["rows"]:

@@ -56,6 +56,17 @@
 //    whole card (ring_checksum_kernel), in 32-bit index arithmetic with the
 //    ntot mask only on the last chunks; on the single SM that decodes, the
 //    fold would take instruction slots from the fire warps.
+//  * K1c, the grouped launch (the TPU form's shard_map dispatch of G device
+//    groups' plans, lz4_flex_tpu/parallel/pipeline.py:decode_blocks_sharded_ring):
+//    the grid is one CTA per plan. G plans padded to one (ntiles, nf) shape
+//    lie back to back, so CTA g finds its literal image and output at
+//    g*ntiles*TR*128 bytes, its record fields at g*ntiles*nf*RB words and its
+//    fire counts at g*ntiles words (read by plain loads, never by a bulk
+//    copy, so that stride needs no 16-byte alignment). Each CTA walks its
+//    plan with its own circular table; with up to 227 KB of shared memory on
+//    an SM one CTA fits on each, so 132 plans run at once and the rest queue.
+//    K1a is the G = 1 case. Padding tiles (nf_tot = 0) emit their zero
+//    literal image, which no caller reads.
 // The TPU form's one-hot matrix pulls are not copied: on this card a
 // shared-memory byte gather is the direct form.
 
@@ -294,6 +305,17 @@ ring_decode_v2(const uint8_t* __restrict__ init, const int32_t* __restrict__ f0,
     const int tid = threadIdx.x;
     const int lane = tid & 31;
 
+    // This CTA's plan (K1c: one CTA per plan; K1a: the only one).
+    {
+        const size_t g = blockIdx.x;
+        init += g * ntiles * C::TILE_B;
+        out += g * ntiles * C::TILE_B;
+        f0 += g * ntiles * nf * kRB;
+        f1 += g * ntiles * nf * kRB;
+        f2 += g * ntiles * nf * kRB;
+        nf_tot += g * ntiles;
+    }
+
     // Output rows -WR..-1 (physical rows 0..WR-1) are zeros for tile 0.
     uint4* tbl4 = reinterpret_cast<uint4*>(tbl);
     for (int i = tid; i < kWR * kLanes / 16; i += C::THREADS) tbl4[i] = make_uint4(0, 0, 0, 0);
@@ -452,34 +474,39 @@ ring_checksum_kernel(const uint4* __restrict__ out, long long nchunks, long long
     if (tid < kLanes) atomicAdd(&acc[tid], acc_s[tid]);
 }
 
+// `nplans` plans of one (ntiles, nf) shape, back to back: one CTA each.
 template <int TR, int FW, int ABL>
 cudaError_t launch_ring_v2(const void* init, const void* f0, const void* f1, const void* f2,
-                           const void* nf_tot, void* out, int ntiles, int nf, cudaStream_t stream)
+                           const void* nf_tot, void* out, int ntiles, int nf, cudaStream_t stream,
+                           int nplans = 1)
 {
     using C = RingCfg<TR, FW>;
     cudaError_t err = cudaFuncSetAttribute(ring_decode_v2<TR, FW, ABL>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, C::NRB);
     if (err != cudaSuccess) return err;
-    ring_decode_v2<TR, FW, ABL><<<1, C::THREADS, C::NRB, stream>>>(
+    ring_decode_v2<TR, FW, ABL><<<nplans, C::THREADS, C::NRB, stream>>>(
         static_cast<const uint8_t*>(init), static_cast<const int32_t*>(f0),
         static_cast<const int32_t*>(f1), static_cast<const int32_t*>(f2),
         static_cast<const int32_t*>(nf_tot), static_cast<uint8_t*>(out), ntiles, nf);
     return cudaGetLastError();
 }
 
-// Decode one plan with the second design and FW fire warps for a runtime
-// tile height; with `acc`, also fold the checksum lanes of out[0, ntot).
+// Decode `nplans` plans of one (ntiles, nf) shape, back to back (K1a and K1b:
+// one; K1c: several, one CTA each), with the second design and FW fire warps
+// for a runtime tile height; with `acc` (one plan only), also fold the
+// checksum lanes of out[0, ntot).
 template <int FW, int ABL = kNoAblation>
 cudaError_t launch_ring_v2_rows(int tile_rows, const void* init, const void* f0, const void* f1,
                                 const void* f2, const void* nf_tot, void* out, int ntiles, int nf,
-                                long long ntot, void* acc, cudaStream_t stream)
+                                long long ntot, void* acc, cudaStream_t stream, int nplans = 1)
 {
+    if (acc != nullptr && nplans != 1) return cudaErrorInvalidValue;
     cudaError_t err;
     switch (tile_rows) {
-        case 64: err = launch_ring_v2<64, FW, ABL>(init, f0, f1, f2, nf_tot, out, ntiles, nf, stream); break;
-        case 128: err = launch_ring_v2<128, FW, ABL>(init, f0, f1, f2, nf_tot, out, ntiles, nf, stream); break;
-        case 256: err = launch_ring_v2<256, FW, ABL>(init, f0, f1, f2, nf_tot, out, ntiles, nf, stream); break;
-        case 512: err = launch_ring_v2<512, FW, ABL>(init, f0, f1, f2, nf_tot, out, ntiles, nf, stream); break;
+        case 64: err = launch_ring_v2<64, FW, ABL>(init, f0, f1, f2, nf_tot, out, ntiles, nf, stream, nplans); break;
+        case 128: err = launch_ring_v2<128, FW, ABL>(init, f0, f1, f2, nf_tot, out, ntiles, nf, stream, nplans); break;
+        case 256: err = launch_ring_v2<256, FW, ABL>(init, f0, f1, f2, nf_tot, out, ntiles, nf, stream, nplans); break;
+        case 512: err = launch_ring_v2<512, FW, ABL>(init, f0, f1, f2, nf_tot, out, ntiles, nf, stream, nplans); break;
         default: return cudaErrorInvalidValue;
     }
     if (err != cudaSuccess || acc == nullptr) return err;

@@ -62,7 +62,10 @@ def _split_overflow(nblocks: int) -> int:
 
 
 class FrameDecoder(io.RawIOBase):
-    """A reader decompressing LZ4 frames from an underlying stream."""
+    """A reader decompressing LZ4 frames from an underlying stream.
+
+    ``mesh`` is accepted and not read, as in the JAX package: the device
+    engine decodes its batches on ``device``."""
 
     #: device engine: max blocks batched per dispatch, the payload-bytes
     #: budget that bounds read-ahead memory (8 MiB ≈ one legacy block), and
@@ -73,7 +76,7 @@ class FrameDecoder(io.RawIOBase):
     DEVICE_BATCH_BYTES = 8 * 1024 * 1024
     DEVICE_BATCH_DECODED_BYTES = 32 * 1024 * 1024
 
-    def __init__(self, r, *, engine: str = "host", device=None) -> None:
+    def __init__(self, r, *, engine: str = "host", mesh=None, device=None) -> None:
         super().__init__()
         if engine not in ("host", "device"):
             raise ValueError(f"unknown engine {engine!r}")

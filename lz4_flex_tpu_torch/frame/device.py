@@ -1,15 +1,21 @@
 """One-shot frame codec on the device engine.
 
 Encode: all blocks of the input staged at once and encoded on the card in
-batched dispatches (parallel/pipeline.py: encode_blocks; a linked block's
-dictionary is the 64 KiB of input before it), framed by a FrameEncoder on
-the device engine (frame/encoder.py).
+batched dispatches (parallel/pipeline.py: encode_blocks_sharded; a linked
+block's dictionary is the 64 KiB of input before it), framed by a
+FrameEncoder on the device engine (frame/encoder.py).
 
 Decode: every frame body in ``data`` goes through the ring decoder as one
 plan (ops/ringdecode.py: decode_parts_ring), linked or independent; a body
 whose plan overflows its static shape goes through the expansion engine on
 the same device instead (ops/decode.py: decode_parts_fused), counted in
-``ringdecode.stats["overflow_fused_decodes"]``.
+``ringdecode.stats["overflow_fused_decodes"]``. Given a mesh, an
+independent frame of more than one block, all compressed, shards over it
+instead (parallel/pipeline.py: decode_blocks_sharded: one plan a mesh entry,
+one grouped kernel launch a card).
+
+``mesh=None`` means the one device that ``device`` names (the JAX package's
+means every device; on one card the two agree).
 
 The frame walk, header and checksum handling match the reference's wire
 format: descriptor, BlockInfo words with the stored-block fallback, optional
@@ -44,24 +50,25 @@ def _is_any_magic(word: int) -> bool:
     )
 
 
-def compress_frame_device(data, frame_info: FrameInfo | None = None, *, device=None,
-                          verify: bool = True) -> bytes:
+def compress_frame_device(data, frame_info: FrameInfo | None = None, *, mesh=None,
+                          device=None, verify: bool = True) -> bytes:
     """Compress ``data`` into one LZ4 frame with the device encoder, the
     promised content size checked before any block is encoded: a
     :class:`FrameEncoder` on ``engine="device"`` given all of ``data`` in one
     write, so the frame's blocks are staged at once and encoded in batched
     dispatches.
 
-    ``device=None`` means the CUDA card; ``device="cpu"`` runs the same
-    torch ops on the CPU. ``verify`` (default on) checks every payload of
-    the all-device encoder (64 and 256 KiB blocks) with the native verify
-    walk and re-encodes a mismatching block on the host."""
+    ``mesh`` (a list of devices, parallel/mesh.py) shards the blocks over
+    its entries; without one, ``device=None`` means the CUDA card and
+    ``device="cpu"`` runs the same torch ops on the CPU. ``verify`` (default
+    on) checks every payload of the all-device encoder with the native
+    verify walk and re-encodes a mismatching block on the host."""
     from .encoder import FrameEncoder
 
     data = bytes(data)
     fi = frame_info if frame_info is not None else FrameInfo()
     buf = io.BytesIO()
-    enc = FrameEncoder(buf, fi, engine="device", device=device, verify=verify)
+    enc = FrameEncoder(buf, fi, engine="device", mesh=mesh, device=device, verify=verify)
     if fi.content_size is not None and fi.content_size != len(data):
         raise errors.ContentLengthError(fi.content_size, len(data))
     enc.write(data)
@@ -69,15 +76,23 @@ def compress_frame_device(data, frame_info: FrameInfo | None = None, *, device=N
     return buf.getvalue()
 
 
-def decompress_frame_device(data, *, device=None) -> bytes:
+def decompress_frame_device(data, *, mesh=None, device=None) -> bytes:
     """Decompress every concatenated frame in ``data`` on the device.
 
-    ``device=None`` means the CUDA card; ``device="cpu"`` runs the ring
-    kernel's and the expansion engine's plain PyTorch versions."""
+    Given ``mesh``, an independent frame of more than one block, every block
+    compressed, shards over it (``decode_blocks_sharded``), and every other
+    frame decodes on its first entry. Without one, ``device=None`` means the
+    CUDA card and ``device="cpu"`` runs the ring kernel's and the expansion
+    engine's plain PyTorch versions."""
     from ..ops.decode import decode_parts_fused
     from ..ops.ringdecode import decode_parts_ring, resolve_device, stats
+    from ..parallel.mesh import codec_mesh
 
-    dev = resolve_device(device)
+    if mesh is not None:
+        mesh = codec_mesh(mesh)
+        dev = mesh[0]
+    else:
+        dev = resolve_device(device)
     data = bytes(data)
     pos = 0
     chunks = []
@@ -142,9 +157,16 @@ def decompress_frame_device(data, *, device=None) -> bytes:
         # ---- device decode ------------------------------------------------
         independent = fi.legacy_frame or fi.block_mode == BlockMode.Independent
         try:
-            out = decode_parts_ring(
-                parts, independent=independent, max_block_size=max_block_size, device=dev
-            )
+            if (mesh is not None and not fi.legacy_frame and fi.block_mode == BlockMode.Independent
+                    and len(parts) > 1 and all(is_comp for _, is_comp in parts)):
+                from ..parallel.pipeline import decode_blocks_sharded
+
+                out = b"".join(decode_blocks_sharded([p for p, _ in parts], max_block_size,
+                                                     mesh=mesh))
+            else:
+                out = decode_parts_ring(
+                    parts, independent=independent, max_block_size=max_block_size, device=dev
+                )
             if out is None:
                 stats["overflow_fused_decodes"] += 1
                 out = decode_parts_fused(

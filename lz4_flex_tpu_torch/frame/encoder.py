@@ -14,7 +14,9 @@ match table carried across blocks with 64-bit stream positions.
 the device encoder on the card (parallel/pipeline.py: encode_blocks): 64
 and 256 KiB blocks through the all-device encoder in batched dispatches,
 checked by the native verify walk unless ``verify=False``, and 1 to 8 MiB
-blocks through the hybrid encoder.
+blocks through the hybrid encoder; given a mesh, the blocks shard over it
+and route as ``encode_blocks_sharded`` routes them (1 to 8 MiB blocks
+through ``compress_block_device`` on a mesh of more than one entry).
 """
 
 from __future__ import annotations
@@ -34,21 +36,24 @@ class FrameEncoder:
     """A writer compressing bytes into an LZ4 frame on an underlying stream.
 
     Must be finalized with :meth:`finish` / :meth:`try_finish`, or used as a
-    context manager (which finishes on exit). ``device`` (``None`` = the
-    CUDA card, or ``"cpu"``) and ``verify`` (default on: each payload of
-    the all-device encoder checked by the native verify walk, a mismatching
-    block re-encoded on the host) serve ``engine="device"``.
+    context manager (which finishes on exit). ``mesh`` (a list of devices,
+    parallel/mesh.py; ``None``: the one device ``device`` names), ``device``
+    (``None`` = the CUDA card, or ``"cpu"``) and ``verify`` (default on:
+    each payload of the all-device encoder checked by the native verify
+    walk, a mismatching block re-encoded on the host) serve
+    ``engine="device"``.
     """
 
     def __init__(self, w, frame_info: FrameInfo | None = None, *, engine: str = "host",
-                 device=None, verify: bool = True) -> None:
+                 mesh=None, device=None, verify: bool = True) -> None:
         if engine not in ("host", "device"):
             raise ValueError(f"unknown engine {engine!r}")
-        self._device = None
+        self._mesh = None
         if engine == "device":
             from ..ops.ringdecode import resolve_device
+            from ..parallel.mesh import codec_mesh
 
-            self._device = resolve_device(device)
+            self._mesh = codec_mesh(mesh) if mesh is not None else [resolve_device(device)]
         self._w = w
         self._frame_info = frame_info if frame_info is not None else FrameInfo()
         self._is_frame_open = False
@@ -183,8 +188,7 @@ class FrameEncoder:
         del self._pending[:take]
         linked = fi.block_mode == BlockMode.Linked and not fi.legacy_frame
         payloads, lens, self._window = encode_blocks(
-            chunk, bs, linked=linked, carry=self._window, device=self._device,
-            verify=self._verify,
+            chunk, bs, linked=linked, carry=self._window, mesh=self._mesh, verify=self._verify,
         )
         pos = 0
         for comp, blen in zip(payloads, lens):

@@ -38,11 +38,14 @@ class CodecConfig:
 
 
 class LZ4Codec:
-    """End-to-end device codec. ``device=None`` means the CUDA card;
-    ``device="cpu"`` runs the device programs' plain PyTorch versions."""
+    """End-to-end device codec over an optional mesh (a list of devices,
+    parallel/mesh.py), which ``compress`` and ``decompress`` shard frame
+    blocks over. ``device=None`` means the CUDA card; ``device="cpu"`` runs
+    the device programs' plain PyTorch versions."""
 
-    def __init__(self, config: CodecConfig | None = None, *, device=None) -> None:
+    def __init__(self, config: CodecConfig | None = None, mesh=None, *, device=None) -> None:
         self.config = config or CodecConfig()
+        self.mesh = mesh
         self.device = device
 
     def compress(self, data) -> bytes:
@@ -51,14 +54,14 @@ class LZ4Codec:
         hybrid encoder)."""
         from ..frame.device import compress_frame_device
 
-        return compress_frame_device(data, self.config.frame_info(), device=self.device,
-                                     verify=self.config.verify)
+        return compress_frame_device(data, self.config.frame_info(), mesh=self.mesh,
+                                     device=self.device, verify=self.config.verify)
 
     def decompress(self, data) -> bytes:
         """Decompress every concatenated LZ4 frame in ``data``."""
         from ..frame.device import decompress_frame_device
 
-        return decompress_frame_device(data, device=self.device)
+        return decompress_frame_device(data, mesh=self.mesh, device=self.device)
 
     def compress_block(self, data, ext_dict=b"") -> bytes:
         """Compress one raw LZ4 block with the all-device encoder."""

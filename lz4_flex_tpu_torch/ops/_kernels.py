@@ -6,7 +6,7 @@ plain C interface, at first use, into the checkout's ``build/`` directory
 Nothing here runs at import time, and nothing falls back: a failed build or
 launch raises.
 
-  ring_decode   K1, the ring decoder (ops/ringdecode.py)
+  ring_decode   K1, the ring decoder, on one plan or (K1c) several (ops/ringdecode.py)
   fire_probe    K1's fire loop in variants (experiments/fire_probe.py)
   gather_probe  shared-memory gather forms (experiments/gather_probe.py)
 """
@@ -35,7 +35,7 @@ _ci = ctypes.c_int
 # C signatures: name -> (restype, argtypes), per library.
 _SIGNATURES = {
     "ring_decode": {
-        "tlz4_ring_decode": (_ci, [_vp] * 6 + [_ci] * 3 + [ctypes.c_longlong, _vp, _vp]),
+        "tlz4_ring_decode": (_ci, [_vp] * 6 + [_ci] * 4 + [ctypes.c_longlong, _vp, _vp]),
         "tlz4_cuda_error_string": (ctypes.c_char_p, [_ci]),
     },
     "fire_probe": {
@@ -102,13 +102,16 @@ def check_launch(err: int, what: str, error_string) -> None:
 
 def launch_ring_decode(init, f0, f1, f2, nf_tot, out, *, tile_rows: int,
                        ntot: int | None, acc, stream: int) -> None:
-    """Launch K1 on ``stream`` (tensors already checked by the caller).
-    Raises RuntimeError when the launch is refused."""
+    """Launch K1 on ``stream`` over one plan (``nf_tot`` of shape (ntiles,):
+    K1a, or K1b with ``acc``) or over G stacked plans (``nf_tot`` of shape
+    (G, ntiles): K1c, one CTA per plan). The tensors are already checked by
+    the caller. Raises RuntimeError when the launch is refused."""
     rl = lib("ring_decode")
+    nplans = 1 if nf_tot.dim() == 1 else nf_tot.shape[0]
     err = rl.tlz4_ring_decode(
         init.data_ptr(), f0.data_ptr(), f1.data_ptr(), f2.data_ptr(),
         nf_tot.data_ptr(), out.data_ptr(),
-        f0.shape[0], f0.shape[1], tile_rows,
+        nplans, f0.shape[-3], f0.shape[-2], tile_rows,
         -1 if ntot is None else int(ntot),
         None if acc is None else acc.data_ptr(),
         stream,

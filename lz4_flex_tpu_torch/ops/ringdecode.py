@@ -67,13 +67,16 @@ PLAN_OVERFLOW_CODES = (-100, -102, -103, -104)
 
 #: Public counters. ``kernel_launches`` counts every launch of the ring
 #: kernel (K1), ``checksum_launches`` those of its checksum variant (K1b),
+#: ``grouped_launches`` those of its grouped form (K1c, one CTA per plan),
 #: ``overflow_fused_decodes`` every decode whose plan overflowed its static
 #: shape and that the expansion engine decoded on the same device instead
-#: (ops/decode.py, frame/device.py, frame/decoder.py), and
-#: ``overflow_splits`` every streaming batch that was split into two plans
-#: for the same reason (frame/decoder.py).
-stats = {"kernel_launches": 0, "checksum_launches": 0, "overflow_fused_decodes": 0,
-         "overflow_splits": 0}
+#: (ops/decode.py, frame/device.py, frame/decoder.py), ``overflow_splits``
+#: every streaming batch that was split into two plans for the same reason
+#: (frame/decoder.py), and ``overflow_sharded_decodes`` every mesh decode
+#: that the resident decoder took over because a group's plan overflowed
+#: (parallel/pipeline.py).
+stats = {"kernel_launches": 0, "checksum_launches": 0, "grouped_launches": 0,
+         "overflow_fused_decodes": 0, "overflow_splits": 0, "overflow_sharded_decodes": 0}
 
 
 def check_tile_rows(tile_rows: int) -> None:
@@ -168,6 +171,7 @@ def build_ring_plan_parts(
     total_out: int,
     *,
     independent: bool = False,
+    nthreads: int = 0,
     tile_rows: int = TILE_ROWS,
     nfmax: int | None = None,
 ):
@@ -176,7 +180,9 @@ def build_ring_plan_parts(
     ``parts`` is a list of (payload, is_compressed) pairs in frame order —
     one entry decodes a raw block, several decode a whole frame body (stored
     blocks pass through as literals). ``independent`` restricts every match
-    to its own block's output.
+    to its own block's output. ``nthreads`` is the native planner's lane
+    count over tiles: 0 lets its pool choose, 1 builds on the calling thread
+    alone (concurrent builds of several plans, parallel/pipeline.py).
 
     Returns (plan, concatenated_comp), or (None, None) when the input does
     not fit the static plan shape (record, depth, or literal-window
@@ -210,7 +216,7 @@ def build_ring_plan_parts(
         blk_store.ctypes.data_as(u8p), len(parts),
         1 if independent else 0, total_out,
         tile_rows, WINDOW_ROWS, RB, nfmax,
-        ntiles, RESOLVE_MIN_DEPTH, RESOLVE_RUNS, 0,  # 0: the native pool picks the thread count
+        ntiles, RESOLVE_MIN_DEPTH, RESOLVE_RUNS, nthreads,
         f0.ctypes.data_as(i32p), f1.ctypes.data_as(i32p),
         f2.ctypes.data_as(i32p),
         nf_tot.ctypes.data_as(i32p), fper.ctypes.data_as(i32p),
@@ -221,7 +227,8 @@ def build_ring_plan_parts(
         # record-capacity overflow: climb the retry ladder
         nxt = next(s for s in NFMAX_STEPS if s > nfmax)
         return build_ring_plan_parts(
-            parts, total_out, independent=independent, tile_rows=tile_rows, nfmax=nxt
+            parts, total_out, independent=independent, nthreads=nthreads, tile_rows=tile_rows,
+            nfmax=nxt,
         )
     if rc in PLAN_OVERFLOW_CODES:
         return None, None
@@ -396,6 +403,51 @@ def ring_decode_reference(init, f0, f1, f2, nf_tot, *, tile_rows: int = TILE_ROW
     part = (out.reshape(-1).to(torch.int64) * w).reshape(-1, 128).sum(0, keepdim=True)
     part = part & 0xFFFFFFFF
     return out, torch.where(part >= 2**31, part - 2**32, part).to(torch.int32)
+
+
+def check_grouped_tensors(init, f0, f1, f2, nf_tot, tile_rows: int) -> None:
+    """The stacked plans of :func:`ring_decode_grouped`: one (G, ...) leading
+    dimension over the tensors :func:`check_plan_tensors` takes."""
+    if nf_tot.dim() != 2:
+        raise ValueError("nf_tot must be a (G, ntiles) int32 tensor")
+    g = nf_tot.shape[0]
+    for name, t in (("init", init), ("f0", f0), ("f1", f1), ("f2", f2)):
+        if t.dim() == 0 or t.shape[0] != g:
+            raise ValueError(f"{name} must lead with the plan count {g}, got {tuple(t.shape)}")
+    if g:
+        check_plan_tensors(init[0], f0[0], f1[0], f2[0], nf_tot[0], tile_rows)
+
+
+def ring_decode_grouped(init, f0, f1, f2, nf_tot, *, tile_rows: int = TILE_ROWS):
+    """Run the ring decoder over G plans padded to one shape and stacked:
+    init (G, ntiles*tile_rows, 128) uint8, f0/f1/f2 (G, ntiles, NF, RB) and
+    nf_tot (G, ntiles) int32 -> (G, ntiles*tile_rows, 128) uint8, plan g's
+    tiles in row g. On CUDA tensors this launches the grouped kernel K1c once
+    (one CTA per plan) and nothing else; on CPU tensors it runs
+    :func:`ring_decode_grouped_reference`."""
+    check_grouped_tensors(init, f0, f1, f2, nf_tot, tile_rows)
+    if init.device.type != "cuda":
+        return ring_decode_grouped_reference(init, f0, f1, f2, nf_tot, tile_rows=tile_rows)
+    from ._kernels import launch_ring_decode
+
+    check_kernel_layout(init=init, f0=f0, f1=f1, f2=f2, nf_tot=nf_tot)
+    out = torch.empty(init.shape, dtype=torch.uint8, device=init.device)
+    if out.numel():
+        with torch.cuda.device(init.device):
+            launch_ring_decode(init, f0, f1, f2, nf_tot, out, tile_rows=tile_rows, ntot=None,
+                               acc=None, stream=torch.cuda.current_stream().cuda_stream)
+        stats["kernel_launches"] += 1
+        stats["grouped_launches"] += 1
+    return out
+
+
+def ring_decode_grouped_reference(init, f0, f1, f2, nf_tot, *, tile_rows: int = TILE_ROWS):
+    """The plain version of :func:`ring_decode_grouped`:
+    :func:`ring_decode_reference` on each plan, on the tensors' device."""
+    out = torch.empty(init.shape, dtype=torch.uint8, device=init.device)
+    for g in range(nf_tot.shape[0]):
+        out[g] = ring_decode_reference(init[g], f0[g], f1[g], f2[g], nf_tot[g], tile_rows=tile_rows)
+    return out
 
 
 def _to_bytes(t: torch.Tensor) -> bytes:

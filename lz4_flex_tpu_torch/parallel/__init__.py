@@ -1,6 +1,31 @@
-"""Host orchestration of the device codec: the persistent walk pool and the
-frame-block encode on one card (the mesh layer comes with ROADMAP item 7)."""
+"""Multi-device scale-out for the codec (the JAX package's ``parallel/``).
 
-from .pipeline import encode_blocks
+Independent frame blocks shard data-parallel over a mesh, a list of torch
+devices (mesh.py): encode in both block modes (a linked block's dictionary
+is a slice of the input, known upfront), and decode of independent blocks,
+whose per-entry ring plans go to each card in one grouped kernel launch.
+``executor.plan_executor`` is the persistent host pool for native walks and
+concurrent plan builds. A mesh spans one process.
+"""
 
-__all__ = ["encode_blocks"]
+from .mesh import codec_mesh, distributed_init, local_codec_mesh
+from .pipeline import (
+    decode_blocks_sharded,
+    encode_blocks,
+    encode_blocks_sharded,
+    fetch_global,
+    roundtrip_step_sharded,
+    stage_blocks,
+)
+
+__all__ = [
+    "codec_mesh",
+    "distributed_init",
+    "fetch_global",
+    "local_codec_mesh",
+    "encode_blocks",
+    "encode_blocks_sharded",
+    "decode_blocks_sharded",
+    "roundtrip_step_sharded",
+    "stage_blocks",
+]

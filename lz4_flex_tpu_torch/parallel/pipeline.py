@@ -1,18 +1,34 @@
-"""Frame blocks through the device codec on one card.
+"""Sharded block pipelines: frame blocks data-parallel over a mesh.
 
-The one-card counterpart of the JAX package's
-``parallel/pipeline.py:encode_blocks_sharded`` on a one-device mesh:
-chunk-scale blocks (at least ``_CHUNK_C`` bytes, so 1, 4 and 8 MiB frame
-blocks) go through the hybrid encoder one block at a time, a linked block's
-dictionary being the 64 KiB of input before it; smaller blocks (64 and 256
-KiB) are staged as rows on the host, dictionary ++ data, and encoded by the
-all-device encoder ``_ENCODE_ROWS`` rows to a dispatch (``_encode_staged``),
-each payload checked by the native verify walk.
+The JAX package's ``parallel/pipeline.py`` on the port's mesh, a list of
+torch devices (parallel/mesh.py); entry i of the mesh takes the i-th
+contiguous span of blocks, and the routing follows ``len(mesh)`` as JAX's
+follows the mesh's device count.
 
-The batched device-resident decode (``_decode_batch``, under
-``LZ4Codec.decode_step``) is the one-device case of the JAX package's
-``_decode_batch``: its ``vmap`` over rows becomes rows decoded one after
-another, since the engines' loops end where each row's data says.
+Encode (``encode_blocks_sharded``): frame blocks are independent compression
+problems even in linked mode (each block's 64 KiB dictionary is a slice of
+the input, known upfront). On a one-entry mesh, chunk-scale blocks (at
+least ``_CHUNK_C`` bytes, so 1, 4 and 8 MiB frame blocks) go through the
+hybrid encoder one block at a time; on a larger mesh, blocks above
+``_CHUNK_C`` go through ``compress_block_device`` one at a time. So a frame
+of 1-8 MiB blocks has other bytes at N = 1 than at N > 1, as in JAX. Smaller
+blocks (64 and 256 KiB) are staged as rows, dictionary ++ data, padded to a
+multiple of the mesh size; each entry encodes its span of rows with the
+all-device encoder, ``_ENCODE_ROWS`` rows to a dispatch (``_encode_staged``),
+and every payload is checked by the native verify walk.
+
+Decode (``decode_blocks_sharded``): each entry's span of independent blocks
+becomes one ring plan, all built at once on the host pool
+(``stage_ring_groups``); the plans of the entries that share a card are
+padded to one shape and decoded by one launch of the grouped ring kernel
+K1c, one CTA per plan (``decode_blocks_sharded_ring``). When a plan
+overflows its static shape the resident decoder takes the frame
+(``_decode_blocks_sharded_resident``).
+
+The batched device-resident decode ``_decode_batch`` (under
+``LZ4Codec.decode_step`` and ``roundtrip_step_sharded``) is the JAX
+package's ``_decode_batch``: its ``vmap`` over rows becomes rows decoded one
+after another, since the engines' loops end where each row's data says.
 """
 
 from __future__ import annotations
@@ -22,8 +38,11 @@ import torch
 
 from .. import native as _native
 from ..block import compress_with_dict
+from ..block import errors as block_errors
 from ..ops import packing
 from ..spec.constants import WINDOW_SIZE, get_maximum_output_size
+from .executor import plan_executor
+from .mesh import codec_mesh
 
 # Rows per encode dispatch. One dispatch of the all-device encoder is ~1,700
 # kernel launches whatever its row count, so rows are batched; its
@@ -34,7 +53,28 @@ from ..spec.constants import WINDOW_SIZE, get_maximum_output_size
 _ENCODE_ROWS = 32
 
 
-def stage_blocks(data, block_size: int, *, linked: bool = False, start: int = 0):
+def fetch_global(x, *, force_replicate: bool = False) -> np.ndarray:
+    """The global value of a tensor, or of a per-entry list of tensors
+    (concatenated along their first axis in mesh order), as one numpy array.
+
+    ``force_replicate`` first gathers every piece onto the first piece's
+    device and reads it from there, the path a multi-process mesh would
+    take. A mesh of this port spans one process; a tensor of a process
+    group larger than one process is not gathered yet and raises."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "fetch_global across processes is not ported yet: a codec mesh spans one process")
+    parts = [x] if isinstance(x, torch.Tensor) else list(x)
+    if force_replicate:
+        home = parts[0].device
+        return torch.cat([p.to(home) for p in parts]).cpu().numpy()
+    return np.concatenate([p.cpu().numpy() for p in parts])
+
+
+def stage_blocks(data, block_size: int, *, linked: bool = False, pad_rows_to: int = 1,
+                 start: int = 0):
     """Split ``data[start:]`` into frame blocks staged as a dense (B, D+S)
     uint8 array plus per-block (dict_len, total_len) vectors and the block
     count.
@@ -42,15 +82,17 @@ def stage_blocks(data, block_size: int, *, linked: bool = False, start: int = 0)
     In linked mode each row is prefixed with the previous 64 KiB of input
     (its dictionary); ``data[:start]`` is window context only (the carry
     from blocks a streaming encoder already wrote), so block 0's dictionary
-    is its tail."""
+    is its tail. ``pad_rows_to`` pads the batch with empty rows so that B
+    divides the mesh size."""
     buf = data if isinstance(data, np.ndarray) else np.frombuffer(data, np.uint8)
     n = buf.shape[0] - start
     nblocks = max(1, -(-n // block_size))
+    b_pad = -(-nblocks // pad_rows_to) * pad_rows_to
     w = WINDOW_SIZE if linked else 0
     width = packing.size_bucket(w + block_size + 4)
-    rows = np.zeros((nblocks, width), dtype=np.uint8)
-    dlen = np.zeros(nblocks, dtype=np.int32)
-    tlen = np.zeros(nblocks, dtype=np.int32)
+    rows = np.zeros((b_pad, width), dtype=np.uint8)
+    dlen = np.zeros(b_pad, dtype=np.int32)
+    tlen = np.zeros(b_pad, dtype=np.int32)
     for i in range(nblocks):
         s = start + i * block_size
         blk = buf[s : s + block_size]
@@ -138,41 +180,61 @@ def encode_geometry(width: int, block_size: int) -> dict:
                 nseq_pad=packing.size_bucket(max(8, width // 4 + 2), minimum=256))
 
 
-def encode_blocks(data, block_size: int, *, linked: bool = False, carry: bytes = b"",
-                  device=None, verify: bool = True):
-    """Compress ``data`` as frame blocks of ``block_size`` bytes.
+def _encode_each_block(buf: bytes, block_size: int, linked: bool, window: bytes, encode):
+    """``encode(block, dictionary)`` on each block of ``buf`` in turn, a
+    linked block's dictionary being the 64 KiB of input before it."""
+    payloads, lens = [], []
+    for pos in range(0, max(len(buf), 1), block_size):
+        blk = buf[pos : pos + block_size]
+        payloads.append(encode(blk, window))
+        lens.append(len(blk))
+        if linked:
+            window = (window + blk)[-WINDOW_SIZE:]
+    return payloads, lens
 
-    Returns (payloads: list[bytes], block_lens: list[int], window: bytes)
-    in frame order; the frame layer wraps the payloads in BlockInfo words
-    and checksums. ``carry`` is the linked-mode window context before
-    ``data`` (the tail of blocks a streaming encoder already wrote); at most
-    64 KiB of it is used, and ``window`` is the context after ``data``, for
-    the next call (empty unless ``linked``).
 
-    Blocks of ``_CHUNK_C`` bytes or more take the hybrid encoder, whose
-    output is spec-valid by construction. Smaller blocks take the
-    all-device encoder; with ``verify`` (the default) each payload goes
+def encode_blocks_sharded(data, block_size: int, *, linked: bool = False, mesh=None,
+                          verify: bool = True, carry: bytes = b""):
+    """Compress ``data`` as frame blocks of ``block_size`` bytes,
+    data-parallel over the mesh (``None``: every visible card).
+
+    Returns (payloads: list[bytes], block_lens: list[int]) in frame order;
+    the frame layer wraps the payloads in BlockInfo words and checksums.
+    ``carry`` is the linked-mode window context before ``data`` (the tail
+    of blocks a streaming encoder already wrote); at most 64 KiB of it is
+    used.
+
+    The routing is the JAX package's (see the module docstring). With
+    ``verify`` (the default) every payload of the all-device encoder goes
     through the native verify walk, and one that fails is replaced by the
-    host encoder's bytes, counted in ``ops.encode.stats["verify_fallbacks"]``."""
+    host encoder's bytes, counted in ``ops.encode.stats["verify_fallbacks"]``
+    (the guard against fingerprint collisions); the hybrid encoder's output
+    is spec-valid by construction."""
     from ..ops import encode as E
-    from ..ops.ringdecode import resolve_device
 
-    dev = resolve_device(device)
+    mesh = codec_mesh(mesh)
     window = bytes(carry)[-WINDOW_SIZE:] if linked else b""
     buf = bytes(data)
-    if block_size >= E._CHUNK_C:
-        payloads, lens = [], []
-        for pos in range(0, max(len(buf), 1), block_size):
-            blk = buf[pos : pos + block_size]
-            payloads.append(E.compress_block_hybrid(blk, ext_dict=window, device=dev))
-            lens.append(len(blk))
-            if linked:
-                window = (window + blk)[-WINDOW_SIZE:]
-        return payloads, lens, window
+    if len(mesh) == 1 and block_size >= E._CHUNK_C:
+        return _encode_each_block(buf, block_size, linked, window, lambda blk, d: (
+            E.compress_block_hybrid(blk, ext_dict=d, device=mesh[0])))
+    if block_size > E._CHUNK_C:
+        # Blocks above the fixed chunk width: the chunked all-device encoder
+        # one block at a time (its shapes stay fixed), on the mesh's first
+        # entry as JAX's runs on the default device.
+        return _encode_each_block(buf, block_size, linked, window, lambda blk, d: (
+            E.compress_block_device(blk, ext_dict=d, verify=verify, device=mesh[0])))
 
     staged = window + buf
-    rows, dlen, tlen, nblocks = stage_blocks(staged, block_size, linked=linked, start=len(window))
-    payloads = _encode_staged(rows, dlen, tlen, dev, encode_geometry(rows.shape[1], block_size))
+    rows, dlen, tlen, nblocks = stage_blocks(staged, block_size, linked=linked,
+                                             pad_rows_to=len(mesh), start=len(window))
+    per = rows.shape[0] // len(mesh)
+    geo = encode_geometry(rows.shape[1], block_size)
+    payloads = []
+    for d, dev in enumerate(mesh):
+        sl = slice(d * per, (d + 1) * per)
+        payloads += _encode_staged(rows[sl], dlen[sl], tlen[sl], dev, geo)
+    del payloads[nblocks:]
     lens = [int(tlen[i] - dlen[i]) for i in range(nblocks)]
     if verify:
         for i in range(nblocks):
@@ -181,14 +243,33 @@ def encode_blocks(data, block_size: int, *, linked: bool = False, carry: bytes =
                 # a fingerprint collision overstated a match
                 E.stats["verify_fallbacks"] += 1
                 payloads[i] = compress_with_dict(rows[i, d:n], rows[i, :d])
-    return payloads, lens, staged[-WINDOW_SIZE:] if linked else b""
+    return payloads, lens
 
 
-def _decode_batch(rows, clen, *, out_pad, nseq_pad):
+def encode_blocks(data, block_size: int, *, linked: bool = False, carry: bytes = b"",
+                  device=None, mesh=None, verify: bool = True):
+    """:func:`encode_blocks_sharded` on ``mesh``, or on the one device that
+    ``device`` names (``None``: the CUDA card), plus the linked-mode window
+    after ``data`` for the next call of a streaming encoder: returns
+    (payloads, block_lens, window), the window empty unless ``linked``."""
+    from ..ops.ringdecode import resolve_device
+
+    if mesh is None:
+        mesh = [resolve_device(device)]
+    payloads, lens = encode_blocks_sharded(data, block_size, linked=linked, mesh=mesh,
+                                           verify=verify, carry=carry)
+    if not linked:
+        return payloads, lens, b""
+    return payloads, lens, (bytes(carry)[-WINDOW_SIZE:] + bytes(data[-WINDOW_SIZE:]))[-WINDOW_SIZE:]
+
+
+def _decode_batch(rows, clen, *, out_pad, nseq_pad, capacity=None):
     """Decode independent blocks on ``rows``' device: (B, C) uint8 payload
     rows, each padded with at least one zero byte, and their (B,) lengths ->
     ((B, out_pad) uint8 outputs, (B,) int32 lengths, (B, 5) bool error
-    flags), each row by ``ops.decode.decode_resident_core``."""
+    flags), each row by ``ops.decode.decode_resident_core``; ``capacity``
+    (default ``out_pad``) is the output size past which a row flags
+    output_too_small."""
     from ..ops.decode import decode_resident_core
     from ..ops.parse import default_parse_engine
 
@@ -196,7 +277,7 @@ def _decode_batch(rows, clen, *, out_pad, nseq_pad):
     for row, n in zip(rows, clen):
         out, total, err = decode_resident_core(
             row, n, out_pad=out_pad, nseq_pad=nseq_pad,
-            parse_engine=default_parse_engine(),
+            parse_engine=default_parse_engine(), capacity=capacity,
         )
         outs.append(out)
         totals.append(total)
@@ -207,3 +288,237 @@ def _decode_batch(rows, clen, *, out_pad, nseq_pad):
                 torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros((0, 5), dtype=torch.bool, device=dev))
     return torch.stack(outs), torch.stack(totals), torch.stack(errs)
+
+
+def roundtrip_step_sharded(data, block_size: int, *, mesh=None):
+    """One full sharded codec step: each mesh entry encodes its span of
+    staged independent blocks and decodes them back (``_decode_batch``),
+    then the compressed lengths are gathered in mesh order (the frame
+    assembly plan), the assembly offsets are their exclusive cumsum, and
+    the roundtrip flag is the minimum of the entries' flags.
+
+    Returns (comp_payload_rows (B, C) uint8, comp_lens (B,) int32,
+    assembly_offsets (B,) int32, ok () bool), on the mesh's first entry.
+    The decode is host-bound: ``_decode_batch`` decodes rows one after
+    another."""
+    mesh = codec_mesh(mesh)
+    rows, dlen, tlen, _ = stage_blocks(data, block_size, pad_rows_to=len(mesh))
+    width = rows.shape[1]
+    geo = encode_geometry(width, block_size)
+    out_pad = packing.size_bucket(block_size)
+    dec_nseq_pad = packing.size_bucket(max(8, geo["comp_pad"] // 3 + 2), minimum=256)
+    per = rows.shape[0] // len(mesh)
+    comps, totals, oks = [], [], []
+    for d, dev in enumerate(mesh):
+        sl = slice(d * per, (d + 1) * per)
+        r = torch.from_numpy(rows[sl]).to(dev)
+        dl, tl = torch.from_numpy(dlen[sl]).to(dev), torch.from_numpy(tlen[sl]).to(dev)
+        comp, total = _encode_batch(r, r.view(torch.int32), dl, tl, **geo)
+        out, out_total, _errs = _decode_batch(comp, total, out_pad=out_pad, nseq_pad=dec_nseq_pad)
+        blen = tl - dl
+        w = min(out_pad, width)
+        mask = torch.arange(w, device=dev)[None, :] < blen[:, None]
+        ok = (torch.where(mask, out[:, :w] == r[:, :w], True).all()
+              & (out_total == blen).all())
+        comps.append(comp)
+        totals.append(total)
+        oks.append(ok)
+    home = mesh[0]
+    all_lens = torch.cat([t.to(home) for t in totals])
+    offsets = torch.cumsum(all_lens, 0, dtype=torch.int32) - all_lens
+    ok = torch.stack([o.to(home) for o in oks]).all()
+    return torch.cat([c.to(home) for c in comps]), all_lens, offsets, ok
+
+
+def _stage_ring_group(group, block_size: int, nthreads: int):
+    """Size walk, plan build and copy-out for one mesh entry's span of
+    independent block payloads.
+
+    Returns (arrs, sizes): arrs the plan's (nf_tot, init, f0, f1, f2) as
+    numpy arrays that no pool owns, its record fields cut to the fires it
+    uses, or () for an all-empty span, and sizes the blocks' decoded sizes;
+    or None when the span does not fit the static plan shape. Runs on the
+    plan executor: the native calls release the GIL, so the groups build
+    concurrently."""
+    from ..ops import ringdecode as RD
+
+    parts = [(np.frombuffer(p, np.uint8), True) for p in group]
+    sizes = RD.part_sizes(parts, block_size)
+    total = int(sum(sizes))
+    if total == 0:
+        return (), sizes
+    plan, _ = RD.build_ring_plan_parts(parts, total, independent=True, nthreads=nthreads)
+    if plan is None:
+        return None
+    # Copy the record fields out, cut to the fires this plan executes
+    # (typical plans use about half the ladder's allocation). .copy(), NOT
+    # np.ascontiguousarray: a sliced view with a size-1 leading dimension
+    # counts as contiguous, so ascontiguousarray would return the pool's own
+    # array, which this thread's build after next overwrites.
+    nf_used = min(max(8, -(-int(plan.nf_tot.max()) // 8) * 8), plan.rec_f0.shape[1])
+    arrs = (plan.nf_tot.copy(), plan.lit_init.copy(),
+            *(f[:, :nf_used].copy() for f in (plan.rec_f0, plan.rec_f1, plan.rec_f2)))
+    return arrs, sizes
+
+
+def stage_ring_groups(groups, block_size: int):
+    """Build every group's ring plan concurrently on the plan executor.
+
+    Returns one :func:`_stage_ring_group` result a group (None for an empty
+    group), or None when any group overflows the static plan shape. With
+    more than one live group each build runs on one lane (``nthreads=1``:
+    the native pool's job lock would serialise concurrent multi-lane
+    builds) and the executor runs the groups in parallel, so the plan wall
+    is about the slowest group's build, not the sum."""
+    live = sum(1 for g in groups if g)
+    if live <= 1:
+        staged = [_stage_ring_group(g, block_size, 0) if g else None for g in groups]
+    else:
+        ex = plan_executor()
+        futs = [ex.submit(_stage_ring_group, g, block_size, 1) if g else None for g in groups]
+        staged = [f.result() if f is not None else None for f in futs]
+    if any(g and s is None for g, s in zip(groups, staged)):
+        return None
+    return staged
+
+
+def stack_ring_plans(plans, tile_rows: int):
+    """Pad plans, each as its (nf_tot, init, f0, f1, f2) numpy arrays, to one
+    (ntiles, nf) shape and stack them: (init, f0, f1, f2, nf_tot), the
+    arguments of ``ring_decode_grouped`` in its order. Padding tiles and
+    fires are zeros: a tile of no fire emits its zero literal image, which
+    no caller reads."""
+    from ..ops.ringdecode import RB
+
+    nt = max(a[0].shape[0] for a in plans)
+    nf = max(a[2].shape[1] for a in plans)
+    g = len(plans)
+    nft = np.zeros((g, nt), np.int32)
+    init = np.zeros((g, nt * tile_rows, 128), np.uint8)
+    fs = [np.zeros((g, nt, nf, RB), np.int32) for _ in range(3)]
+    for k, (a_nft, a_init, *a_fs) in enumerate(plans):
+        dnt, dnf = a_nft.shape[0], a_fs[0].shape[1]
+        nft[k, :dnt] = a_nft
+        init[k, : a_init.shape[0]] = a_init
+        for f, a in zip(fs, a_fs):
+            f[k, :dnt, :dnf] = a
+    return init, *fs, nft
+
+
+def decode_blocks_sharded_ring(payloads, block_size: int, *, mesh=None):
+    """Ring-engine mesh decode of independent compressed block payloads.
+
+    The blocks split into ``len(mesh)`` contiguous groups, one a mesh
+    entry; every group's plan is built at once (:func:`stage_ring_groups`).
+    The plans of the entries that share a device are padded to one (ntiles,
+    nf) shape, stacked and uploaded through pinned memory, and decoded by
+    one launch of the grouped ring kernel K1c (``ring_decode_grouped``: one
+    CTA per plan; its plain version on CPU tensors). Each device's output
+    is read once and cut into blocks by their sizes. Returns list[bytes], or
+    None when any group overflows the static plan shape (the caller takes
+    the resident decoder)."""
+    from ..ops import ringdecode as RD
+
+    mesh = codec_mesh(mesh)
+    nblocks = len(payloads)
+    per = -(-nblocks // len(mesh)) if nblocks else 1
+    groups = [payloads[i * per : (i + 1) * per] for i in range(len(mesh))]
+    staged = stage_ring_groups(groups, block_size)
+    if staged is None:
+        return None
+
+    tr = RD.TILE_ROWS
+    launched = []  # (group indices, output tensor) of each physical device
+    for dev in dict.fromkeys(mesh):  # each physical device once, in mesh order
+        idx = [d for d, m in enumerate(mesh) if m == dev and staged[d] and staged[d][0]]
+        if not idx:
+            continue
+        stacked = stack_ring_plans([staged[d][0] for d in idx], tr)
+        if dev.type == "cuda":
+            up = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True) for a in stacked]
+        else:
+            up = [torch.from_numpy(a) for a in stacked]
+        launched.append((idx, RD.ring_decode_grouped(*up, tile_rows=tr)))
+    decoded = {}  # group index -> flat uint8 numpy output
+    for idx, out in launched:  # every device's launch is queued before the first read
+        out = out.cpu().numpy()
+        for k, d in enumerate(idx):
+            decoded[d] = out[k].reshape(-1)
+
+    blocks: list[bytes] = []
+    for d, s in enumerate(staged):
+        if s is None:
+            continue
+        flat, pos = decoded.get(d), 0
+        for sz in s[1]:
+            blocks.append(b"" if flat is None else flat[pos : pos + sz].tobytes())
+            pos += sz
+    return blocks
+
+
+def decode_blocks_sharded(payloads, block_size: int, *, mesh=None):
+    """Decompress independent-mode compressed block payloads data-parallel
+    over the mesh (``None``: every visible card): the ring engine's grouped
+    launch when every group's plan fits its static shape, the resident
+    decoder otherwise (counted in
+    ``ops.ringdecode.stats["overflow_sharded_decodes"]``). Returns the
+    blocks' bytes in order; raises the block error taxonomy on malformed
+    input."""
+    from ..ops.ringdecode import stats
+
+    mesh = codec_mesh(mesh)
+    ring = decode_blocks_sharded_ring(payloads, block_size, mesh=mesh)
+    if ring is not None:
+        return ring
+    stats["overflow_sharded_decodes"] += 1
+    return _decode_blocks_sharded_resident(payloads, block_size, mesh=mesh)
+
+
+def _decode_blocks_sharded_resident(payloads, block_size: int, *, mesh=None):
+    """The resident-decoder mesh decode, the fallback when a ring plan
+    overflows (the JAX package's ``_decode_blocks_sharded_xla``): payload
+    rows padded to a multiple of the mesh size, each entry's span decoded
+    by ``_decode_batch`` on its device, the error flags of the first bad
+    block raised as the block error they name."""
+    mesh = codec_mesh(mesh)
+    ndev = len(mesh)
+    nblocks = len(payloads)
+    b_pad = max(ndev, -(-nblocks // ndev) * ndev)
+    # +1: the device parser needs at least one zero pad byte after each
+    # payload to detect blocks truncated mid-LSIC run.
+    width = packing.size_bucket(max(max((len(p) for p in payloads), default=4), 4) + 1)
+    rows = np.zeros((b_pad, width), dtype=np.uint8)
+    clen = np.ones(b_pad, dtype=np.int32)  # padding rows: one empty-block token
+    for i, p in enumerate(payloads):
+        rows[i, : len(p)] = np.frombuffer(p, np.uint8)
+        clen[i] = len(p)
+    out_pad = packing.size_bucket(block_size)
+    nseq_pad = packing.size_bucket(max(8, width // 3 + 2), minimum=256)
+    per = b_pad // ndev
+    outs, totals, errs = [], [], []
+    for d, dev in enumerate(mesh):
+        sl = slice(d * per, (d + 1) * per)
+        o, t, e = _decode_batch(torch.from_numpy(rows[sl]).to(dev),
+                                torch.from_numpy(clen[sl]).to(dev),
+                                out_pad=out_pad, nseq_pad=nseq_pad, capacity=block_size)
+        outs.append(o)
+        totals.append(t)
+        errs.append(e)
+    errs_h = fetch_global(errs)[:nblocks]
+    total_h = fetch_global(totals)
+    if errs_h.any():
+        bad = int(np.argwhere(errs_h.any(axis=1))[0][0])
+        flags = errs_h[bad]
+        if flags[1]:
+            raise block_errors.ExpectedAnotherByte()
+        if flags[0]:
+            raise block_errors.LiteralOutOfBounds()
+        if flags[2]:
+            raise block_errors.OffsetZero()
+        if flags[3]:
+            raise block_errors.OffsetOutOfBounds()
+        if flags[4]:
+            raise block_errors.OutputTooSmall(int(total_h[bad]), block_size)
+        raise block_errors.ExpectedAnotherByte()
+    out_h = fetch_global(outs)
+    return [out_h[i, : total_h[i]].tobytes() for i in range(nblocks)]

@@ -1,7 +1,8 @@
-"""The ring kernel and the probes' kernels on the card against their plain
-PyTorch versions, the fallback decode engines and the all-device encoder
-(torch ops) on the card against their CPU run, and the entry points with
-their default device.
+"""The ring kernel (one plan, and grouped: K1c) and the probes' kernels on
+the card against their plain PyTorch versions, the fallback decode engines
+and the all-device encoder (torch ops) on the card against their CPU run,
+the mesh pipelines on one card against their CPU run, and the entry points
+with their default device.
 These tests need a CUDA card of
 compute capability 9.0+ and skip without one; they import no JAX, so on a
 machine without it they run with
@@ -410,3 +411,49 @@ def test_fallback_entry_points_on_card(card, monkeypatch):
     assert frame.FrameDecoder(io.BytesIO(one), engine="device").read_all() == data[:60000]
     assert R.stats["overflow_fused_decodes"] == before["overflow_fused_decodes"] + 4
     assert R.stats["kernel_launches"] == before["kernel_launches"]
+
+
+def _plan_arrays(plan):
+    """A plan's (nf_tot, init, f0, f1, f2), copied out of the planner's pool."""
+    return tuple(a.copy() for a in (plan.nf_tot, plan.lit_init, plan.rec_f0, plan.rec_f1,
+                                    plan.rec_f2))
+
+
+@pytest.mark.parametrize("tile_rows", [256, 512])
+@pytest.mark.parametrize("groups", [1, 2, 8, 40, 140])
+def test_grouped_kernel_equals_reference(card, tile_rows, groups):
+    # G plans of unequal shapes padded to one and decoded by one launch of
+    # K1c; 140 plans are more than the card's 132 SMs hold at once.
+    from lz4_flex_tpu_torch.parallel import pipeline as PP
+
+    inputs = list(block_inputs().values())
+    datas = [inputs[g % len(inputs)] if groups <= 40 else word_soup(5000 + 997 * g, seed=g)
+             for g in range(groups)]
+    plans = [_plan_arrays(R.build_ring_plan(native.compress_block(d), len(d), tile_rows=tile_rows))
+             for d in datas]
+    ts = [torch.from_numpy(a).to(card) for a in PP.stack_ring_plans(plans, tile_rows)]
+    before = dict(R.stats)
+    out = R.ring_decode_grouped(*ts, tile_rows=tile_rows)
+    assert R.stats["grouped_launches"] == before["grouped_launches"] + 1
+    assert R.stats["kernel_launches"] == before["kernel_launches"] + 1
+    assert torch.equal(out, R.ring_decode_grouped_reference(*ts, tile_rows=tile_rows))
+    for g, d in enumerate(datas):
+        assert out[g].reshape(-1)[: len(d)].cpu().numpy().tobytes() == d
+    # K1a is the one-plan case of the same kernel
+    assert torch.equal(R.ring_decode(*(t[0] for t in ts), tile_rows=tile_rows), out[0])
+
+
+def test_mesh_decode_and_encode_on_one_card(card):
+    from lz4_flex_tpu_torch.parallel import pipeline as PP
+
+    data = word_soup(1500000, seed=61)
+    f = frame.compress(data, frame.FrameInfo(block_size=frame.BlockSize.Max64KB))
+    for n in (2, 4, 8):
+        before = dict(R.stats)
+        assert decompress_frame_device(f, mesh=["cuda:0"] * n) == data
+        assert R.stats["grouped_launches"] == before["grouped_launches"] + 1
+        assert R.stats["overflow_sharded_decodes"] == before["overflow_sharded_decodes"]
+    got = PP.encode_blocks_sharded(data[:600000], 65536, mesh=["cuda:0"] * 4)
+    assert got == PP.encode_blocks_sharded(data[:600000], 65536, mesh=["cpu"] * 4)
+    comp, lens, offsets, ok = PP.roundtrip_step_sharded(data[:300000], 65536, mesh=["cuda:0"] * 2)
+    assert bool(ok) and comp.device.type == "cuda"

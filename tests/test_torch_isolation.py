@@ -16,6 +16,7 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch",
     "lz4_flex_tpu_torch.block",
     "lz4_flex_tpu_torch.block.errors",
+    "lz4_flex_tpu_torch.cli",
     "lz4_flex_tpu_torch.experiments",
     "lz4_flex_tpu_torch.experiments.fire_probe",
     "lz4_flex_tpu_torch.experiments.gather_probe",
@@ -40,6 +41,7 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch.ops.sequences",
     "lz4_flex_tpu_torch.parallel",
     "lz4_flex_tpu_torch.parallel.executor",
+    "lz4_flex_tpu_torch.parallel.mesh",
     "lz4_flex_tpu_torch.parallel.pipeline",
     "lz4_flex_tpu_torch.spec",
     "lz4_flex_tpu_torch.spec.constants",
@@ -101,7 +103,8 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     from lz4_flex_tpu_torch.ops.decode import decode_block_device, decode_parts_fused
     from lz4_flex_tpu_torch.ops.encode import compress_block_device, compress_block_hybrid
     from lz4_flex_tpu_torch.ops.parse import parse_sequences_device
-    from lz4_flex_tpu_torch.parallel.pipeline import encode_blocks
+    from lz4_flex_tpu_torch.parallel import codec_mesh, decode_blocks_sharded
+    from lz4_flex_tpu_torch.parallel.pipeline import encode_blocks, encode_blocks_sharded
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = b"hello hello hello " * 100
@@ -137,6 +140,11 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         lambda: compress_frame_device(data),
         lambda: FrameEncoder(io.BytesIO(), FrameInfo(block_size=BlockSize.Max256KB),
                              engine="device").write(data),
+        lambda: codec_mesh(),
+        lambda: encode_blocks_sharded(data, 65536),
+        lambda: decode_blocks_sharded([comp], 65536),
+        lambda: decompress_frame_device(f, mesh=["cuda:0"] * 2),
+        lambda: LZ4Codec(mesh=["cuda"]).compress(data),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
