@@ -104,9 +104,29 @@ Phases (any failure raises and the exit code is not 0):
    and 8, and end to end beside the one-card path. The CLI with ``--engine
    device`` as subprocesses: a 4 MiB pipe and file roundtrip, its frames
    equal to ``compress_frame_device``'s and read back by the host engine.
+11. The examples and a two-process mesh. The five examples as ``python -m
+   lz4_flex_tpu_torch.examples.<name>`` subprocesses: ``compress`` then
+   ``decompress`` and ``compress_block`` then ``decompress_block`` on the 4
+   MiB input of phase 10 (each equal to the host codec's bytes and back to
+   the input), and ``device_pipeline`` on the 10 MiB bench soup (its line
+   names the size of ``LZ4Codec``'s 64 KiB linked frame, which decodes back
+   in this process with K1 launched). Then two processes of this script
+   (``--mesh-worker``) join a group through ``distributed_init``, both on
+   ``cuda:0``, the pipelines' gathers running over its gloo group. At global
+   meshes of 2x2 and 2x4 entries, on phase 9's 160-block default frame,
+   ``decompress_frame_device(mesh=)`` and ``compress_frame_device(mesh=)``
+   on every rank equal the one-process N=4 and N=8 bytes; each process
+   launches K1c once a decode (counters set to 0 just before), with no
+   overflow; each rank's groups through K1c are held against
+   ``ring_decode_grouped_reference`` (byte-exact). A forced overflow on rank
+   1 alone (8 blocks) sends both ranks to the resident decoder, byte-exact,
+   with no K1 launch; a corrupted block in rank 1's span raises
+   ``OffsetOutOfBounds`` on both ranks. The two-process wall times print
+   beside phase 10's one-process N=4 and N=8 times. A worker that fails,
+   times out or disagrees fails the run.
    Then one JSON line ``{"kernels": ...}`` whose ``max_abs_err`` covers every
    comparison and whose K1 and K1c launches count every path of phases 3,
-   6, 7, 9 and 10.
+   6, 7 and 9-11.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -128,6 +148,10 @@ MIB = 1 << 20
 REPLACES = "lz4_flex_tpu/ops/ringdecode.py:392"
 SOURCE = "lz4_flex_tpu_torch/csrc/ring_decode.cu"
 L2_FLUSH_BYTES = 64 * MIB  # written between launches for a cold-L2 time (L2: 50 MB)
+MESH_WORKER = "--mesh-worker"  # the argument that makes this script one rank of phase 11
+MESH_WORLD = 2  # processes of phase 11's group
+MESH_LOCAL = (2, 4)  # mesh entries a process: global meshes of 4 and 8
+MESH_BAD_BLOCK = 100  # a block of rank 1's span at either mesh, corrupted in phase 11
 
 
 def main() -> None:
@@ -1349,6 +1373,130 @@ def main() -> None:
             same(fh.read(), data4, "CLI file roundtrip")
     print(f"  phase 10 took {time.perf_counter() - t_phase10:.1f} s", flush=True)
 
+    # ---- 11. the examples, and a two-process mesh on one card ------------------------------
+    print(f"phase 11: the five examples as python -m, and a two-process mesh on cuda:0 "
+          f"(tolerance: byte-exact; K1c against its plain version: max_abs_err must be 0) "
+          f"[{card}]", flush=True)
+    t_phase11 = time.perf_counter()
+    import hashlib
+    import pickle
+    import socket
+
+    from lz4_flex_tpu_torch.block import compress_prepend_size
+
+    def start(args, stdin: bytes = b""):
+        """A subprocess of this checkout's Python, its stdin written and
+        closed: (process, its start time, its stdin bytes)."""
+        p = subprocess.Popen([sys.executable, *args], cwd=root, env=env, stdin=subprocess.PIPE,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        return p, time.perf_counter(), stdin
+
+    def finish(run, label: str, timeout: float) -> bytes:
+        p, t0, stdin = run
+        try:
+            out, err = p.communicate(stdin, timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise SystemExit(f"chip_smoke: {label} timed out after {timeout} s")
+        if p.returncode:
+            raise SystemExit(f"chip_smoke: {label} failed (exit {p.returncode}): "
+                             f"{err.decode(errors='replace')[-3000:]}")
+        print(f"  {label}: {(time.perf_counter() - t0) * 1e3:.1f} ms (process included) [{card}]",
+              flush=True)
+        return out
+
+    def example(name: str) -> list[str]:
+        return ["-m", f"lz4_flex_tpu_torch.examples.{name}"]
+
+    cfg_pipe = CodecConfig(block_size=BlockSize.Max64KB, block_mode=BlockMode.Linked,
+                           content_checksum=True)
+    f_pipe = LZ4Codec(cfg_pipe).compress(data)
+    main_path("device_pipeline's decode, in this process",
+              lambda: expect(LZ4Codec(cfg_pipe).decompress(f_pipe), "device_pipeline's frame"))
+    with tempfile.TemporaryDirectory() as tmp:
+        soup_path = os.path.join(tmp, "soup.txt")
+        with open(soup_path, "wb") as fh:
+            fh.write(data)
+        wave = {name: start(example(name), data4) for name in ("compress", "compress_block")}
+        wave["device_pipeline"] = start(example("device_pipeline") + [soup_path])
+        outs = {name: finish(run, f"examples.{name}", 600) for name, run in wave.items()}
+    same(outs["compress"], F.compress(data4), "examples.compress against the host frame codec")
+    same(outs["compress_block"], compress_prepend_size(data4),
+         "examples.compress_block against block.compress_prepend_size")
+    want_line = (f"{n} -> {len(f_pipe)} bytes (ratio {len(f_pipe) / n:.4f}), "
+                 f"roundtrip OK\n").encode()
+    print(f"  examples.device_pipeline on the 10 MiB soup: {outs['device_pipeline'].decode().strip()}",
+          flush=True)
+    same(outs["device_pipeline"], want_line, "examples.device_pipeline's line")
+    wave = {"decompress": start(example("decompress"), outs["compress"]),
+            "decompress_block": start(example("decompress_block"), outs["compress_block"])}
+    for name, run in wave.items():
+        same(finish(run, f"examples.{name}", 600), data4, f"examples.{name} back to the input")
+
+    # two processes of this script on cuda:0, joined by distributed_init, global meshes of
+    # 2x2 and 2x4
+    want_enc = {k: compress_frame_device(data, fi_default, mesh=mesh_of(k)) for k in (4, 8)}
+    with tempfile.TemporaryDirectory() as work:
+        with open(os.path.join(work, "inputs.pkl"), "wb") as fh:
+            pickle.dump((data, f_default, payloads160), fh)
+        with socket.socket() as sk:  # a free port for the group's rendezvous
+            sk.bind(("127.0.0.1", 0))
+            address = f"127.0.0.1:{sk.getsockname()[1]}"
+        runs = [start([os.path.abspath(__file__), MESH_WORKER, address, str(r), str(MESH_WORLD), work])
+                for r in range(MESH_WORLD)]
+        try:
+            for r, run in enumerate(runs):
+                print(finish(run, f"mesh worker rank {r}", 300).decode().rstrip(), flush=True)
+        finally:
+            for p, _, _ in runs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+
+    def digest(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    for local in MESH_LOCAL:
+        k = MESH_WORLD * local
+        for st in ranks:
+            got = st["meshes"][str(local)]
+            if got["decoded"] != digest(data) or got["encoded"] != digest(want_enc[k]):
+                raise SystemExit(f"chip_smoke: rank {st['rank']} at 2x{local} differs from the "
+                                 f"one-process N={k} bytes")
+            s = got["counts"]
+            if s["grouped_launches"] != 1 or s["kernel_launches"] != 1 or s["overflow_sharded_decodes"]:
+                raise SystemExit(f"chip_smoke: rank {st['rank']} at 2x{local}: {s}, not one K1c launch")
+            launches["ring_decode_grouped"] += s["grouped_launches"]
+        print(f"  two-process decompress_frame_device at 2x{local}: " + ", ".join(
+            f"rank {st['rank']} {st['meshes'][str(local)]['decode_ms']:.3f} ms" for st in ranks)
+              + f" against one process at N={k} {e2e_mesh[k]:.3f} ms (phase 10); "
+              f"compress_frame_device " + ", ".join(
+                  f"rank {st['rank']} {st['meshes'][str(local)]['encode_ms']:.3f} ms" for st in ranks)
+              + f"; bytes equal to N={k}, one K1c launch a process a decode [{card}]", flush=True)
+    for st in ranks:
+        max_err["ring_decode_grouped"] = max(max_err["ring_decode_grouped"], st["k1c_max_abs_err"])
+        if st["k1c_max_abs_err"] or not st["k1c_bytes_exact"]:
+            raise SystemExit(f"chip_smoke: K1c and its plain version disagree on rank {st['rank']}")
+        s = st["overflow"]["counts"]
+        if (st["overflow"]["decoded"] != digest(data[: 8 * 65536])
+                or s["overflow_sharded_decodes"] != 1 or s["kernel_launches"]):
+            raise SystemExit(f"chip_smoke: forced overflow on rank 1: rank {st['rank']}: {s}")
+        if st["corrupt"] != "OffsetOutOfBounds":
+            raise SystemExit(f"chip_smoke: a corrupted block on rank 1: rank {st['rank']} "
+                             f"raised {st['corrupt']}")
+    print(f"  the host gather alone, {n // MESH_WORLD} bytes a rank over gloo: " + ", ".join(
+        f"rank {st['rank']} {st['gather_ms']:.3f} ms" for st in ranks) + f" [{card}]", flush=True)
+    print(f"  forced overflow on rank 1 alone: both ranks byte-exact through the resident decoder, "
+          f"no K1 launch ({', '.join(f'{st["overflow"]["ms"]:.3f}' for st in ranks)} ms); "
+          f"a corrupted block on rank 1: OffsetOutOfBounds on both ranks; K1c max_abs_err 0 on "
+          f"each rank's groups [{card}]", flush=True)
+    print(f"  phase 11 took {time.perf_counter() - t_phase11:.1f} s", flush=True)
+
     main = results[R.TILE_ROWS]
     kernels = [
         {"name": "ring_decode", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
@@ -1389,6 +1537,125 @@ def main() -> None:
                                               "count": torch.cuda.device_count()}}))
 
 
+def mesh_worker(address: str, rank: int, world: int, work: str) -> None:
+    """One rank of phase 11: join the group at ``address`` through
+    ``distributed_init`` (NCCL is the default group where a card is
+    present; the pipelines' gathers run over its gloo host group, so both
+    ranks may share ``cuda:0``), run every mesh case on ``cuda:0`` with the
+    inputs that the parent wrote to
+    ``work/inputs.pkl``, and write what it saw to ``work/rank<rank>.json``:
+    digests of its outputs, launch counts, times and error types. Any
+    failure raises, so the process exits non-zero."""
+    import hashlib
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lz4_flex_tpu_torch import native
+    from lz4_flex_tpu_torch.block import errors as BE
+    from lz4_flex_tpu_torch.frame import compress_frame_device, decompress_frame_device
+    from lz4_flex_tpu_torch.models import CodecConfig
+    from lz4_flex_tpu_torch.ops import ringdecode as R
+    from lz4_flex_tpu_torch.parallel import distributed_init
+    from lz4_flex_tpu_torch.parallel import pipeline as PP
+    from lz4_flex_tpu_torch.parallel.mesh import all_gather_arrays, host_group
+
+    if not distributed_init(address, num_processes=world, process_id=rank, local_device_ids=[0]):
+        raise SystemExit("distributed_init did not start a process group")
+    print(f"  mesh worker rank {rank}: default group {dist.get_backend()}, host gathers over "
+          f"{'the default group' if host_group() is None else 'a gloo group'}", flush=True)
+    with open(os.path.join(work, "inputs.pkl"), "rb") as fh:
+        data, frame, payloads = pickle.load(fh)
+    fi = CodecConfig().frame_info()
+
+    def digest(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    def counted(fn):
+        """fn() with the launch counters set to 0 just before: (its result,
+        the counters, ms on the host clock up to a synchronize)."""
+        for key in R.stats:
+            R.stats[key] = 0
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, dict(R.stats), (time.perf_counter() - t0) * 1e3
+
+    def median_ms(fn, iters: int) -> float:
+        return statistics.median(counted(fn)[2] for _ in range(iters))
+
+    report = {"rank": rank, "meshes": {}}
+    for local in MESH_LOCAL:
+        mesh = ["cuda:0"] * local
+        decoded, counts, _ = counted(lambda: decompress_frame_device(frame, mesh=mesh))
+        encoded = compress_frame_device(data, fi, mesh=mesh)
+        report["meshes"][str(local)] = dict(
+            decoded=digest(decoded), counts=counts, encoded=digest(encoded),
+            decode_ms=median_ms(lambda: decompress_frame_device(frame, mesh=mesh), 5),
+            encode_ms=median_ms(lambda: compress_frame_device(data, fi, mesh=mesh), 3))
+
+    # the host gather alone: the decoded frame's bytes, half a rank, over the gloo group
+    share = len(data) // world
+    mine = np.frombuffer(data, np.uint8)[rank * share : (rank + 1) * share]
+    gather_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        all_gather_arrays(mine, [share] * world)
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+    report["gather_ms"] = statistics.median(gather_ms)
+
+    # this rank's groups at 2x2 through K1c and its plain version
+    per = -(-len(payloads) // (world * MESH_LOCAL[0]))
+    groups = [payloads[g * per : (g + 1) * per]
+              for g in range(rank * MESH_LOCAL[0], (rank + 1) * MESH_LOCAL[0])]
+    staged = [st for st in PP.stage_ring_groups(groups, 65536) if st and st[0]]
+    ts = [torch.from_numpy(a).cuda() for a in PP.stack_ring_plans([st[0] for st in staged],
+                                                                   R.TILE_ROWS)]
+    out = R.ring_decode_grouped(*ts, tile_rows=R.TILE_ROWS)
+    ref = R.ring_decode_grouped_reference(*ts, tile_rows=R.TILE_ROWS)
+    torch.cuda.synchronize()
+    host = out.cpu().numpy()
+    got = b"".join(host[k].reshape(-1)[: sum(st[1])].tobytes() for k, st in enumerate(staged))
+    first = rank * MESH_LOCAL[0] * per * 65536
+    report["k1c_max_abs_err"] = int((out.int() - ref.int()).abs().max())
+    report["k1c_bytes_exact"] = got == data[first : first + len(got)]
+
+    # rank 1's plans overflow (a one-step NFMAX ladder), rank 0's fit; no host decode anywhere
+    def refuse(*a, **kw):
+        raise SystemExit("a device path decoded on the host")
+
+    saved = R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0], native.decompress_block
+    native.decompress_block = refuse
+    if rank == 1:
+        R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0] = (1,), 1, 1
+    try:
+        blocks, counts, ms = counted(
+            lambda: PP.decode_blocks_sharded(payloads[:8], 65536, mesh=["cuda:0"] * MESH_LOCAL[0]))
+    finally:
+        R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0], native.decompress_block = saved
+    report["overflow"] = dict(decoded=digest(b"".join(blocks)), counts=counts, ms=ms)
+
+    # a block of rank 1's span corrupted: a match reaching before the block's start
+    bad = list(payloads)
+    bad[MESH_BAD_BLOCK] = bytes([0x10, 0x41, 100, 0, 0x00])
+    try:
+        PP.decode_blocks_sharded(bad, 65536, mesh=["cuda:0"] * MESH_LOCAL[0])
+    except BE.DecompressError as e:
+        report["corrupt"] = type(e).__name__
+    else:
+        raise SystemExit("a corrupted block decoded without an error")
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    dist.destroy_process_group()
+    print(f"  mesh worker rank {rank}: done, K1c against its plain version max_abs_err "
+          f"{report['k1c_max_abs_err']}")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [MESH_WORKER]:
+        mesh_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    else:
+        main()
     sys.stdout.flush()

@@ -340,21 +340,34 @@ def hybrid_stitch(G: np.ndarray, wires: np.ndarray, wire_off: np.ndarray, wire_l
     return out[:n].tobytes()
 
 
-def decompress_block(data, max_output_size: int, ext_dict=b"") -> bytes:
-    """Token-walk block decode into at most ``max_output_size`` bytes."""
+def decompress_block(data, max_output_size: int, ext_dict=b"",
+                     out: np.ndarray | None = None, out_pos: int = 0) -> bytes | int:
+    """Token-walk block decode into at most ``max_output_size`` bytes.
+
+    Returns the bytes, or, given a contiguous uint8 ``out`` buffer, writes
+    them at ``out[out_pos:]`` (never past ``out.size``) and returns their
+    count."""
     src = as_u8(data)
     dic = as_u8(ext_dict)
-    out = np.empty(max_output_size, dtype=np.uint8)
+    return_bytes = out is None
+    if return_bytes:
+        out = np.empty(max_output_size, dtype=np.uint8)
+        cap = max_output_size
+    else:
+        out = _c_array(out, np.uint8, "out")
+        if not 0 <= out_pos <= out.size:
+            raise ValueError(f"out_pos {out_pos} outside the output (size {out.size})")
+        cap = min(out_pos + max_output_size, out.size)
     expected = ctypes.c_uint64(0)
     n = _lib().tlz4_decompress_block(
         _ptr(src), src.size,
-        _ptr(out), 0, max_output_size,
+        _ptr(out), out_pos, cap,
         _ptr(dic), dic.size,
         ctypes.byref(expected),
     )
     if n < 0:
         _raise_decompress_error(int(n), int(expected.value), max_output_size)
-    return out[:n].tobytes()
+    return out[out_pos : out_pos + n].tobytes() if return_bytes else int(n)
 
 
 def measure_block(data) -> int:

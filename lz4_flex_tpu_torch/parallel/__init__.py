@@ -5,7 +5,10 @@ devices (mesh.py): encode in both block modes (a linked block's dictionary
 is a slice of the input, known upfront), and decode of independent blocks,
 whose per-entry ring plans go to each card in one grouped kernel launch.
 ``executor.plan_executor`` is the persistent host pool for native walks and
-concurrent plan builds. A mesh spans one process.
+concurrent plan builds. In a ``torch.distributed`` group of several
+processes, the global mesh is every process's mesh in rank order; each
+process works on its own entries and the results are gathered as host
+copies (mesh.py, pipeline.py).
 """
 
 from .mesh import codec_mesh, distributed_init, local_codec_mesh

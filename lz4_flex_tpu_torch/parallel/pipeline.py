@@ -1,9 +1,19 @@
 """Sharded block pipelines: frame blocks data-parallel over a mesh.
 
 The JAX package's ``parallel/pipeline.py`` on the port's mesh, a list of
-torch devices (parallel/mesh.py); entry i of the mesh takes the i-th
-contiguous span of blocks, and the routing follows ``len(mesh)`` as JAX's
-follows the mesh's device count.
+torch devices (parallel/mesh.py); entry i of the global mesh takes the i-th
+contiguous span of blocks, and the routing follows the global entry count
+(``len(mesh)`` times the processes) as JAX's follows the mesh's device
+count.
+
+Across processes (a ``torch.distributed`` group of W > 1): each process
+stages, plans and launches only the groups of its own entries; then every
+rank agrees on the outcome (``mesh.agree``: one status word a rank, so an
+overflow or a malformed block on one rank sends every rank the same way),
+and the results are gathered as host copies (``mesh.all_gather_arrays``):
+on encode the 4-byte compressed length of each block, then the payloads;
+on decode the decoded sizes, then the bytes. Every rank returns the same
+list in frame order.
 
 Encode (``encode_blocks_sharded``): frame blocks are independent compression
 problems even in linked mode (each block's 64 KiB dictionary is a slice of
@@ -42,7 +52,14 @@ from ..block import errors as block_errors
 from ..ops import packing
 from ..spec.constants import WINDOW_SIZE, get_maximum_output_size
 from .executor import plan_executor
-from .mesh import codec_mesh
+from .mesh import (
+    MeshLayout,
+    agree,
+    all_gather_arrays,
+    codec_mesh,
+    mesh_layout,
+    process_rank_and_world,
+)
 
 # Rows per encode dispatch. One dispatch of the all-device encoder is ~1,700
 # kernel launches whatever its row count, so rows are batched; its
@@ -57,16 +74,15 @@ def fetch_global(x, *, force_replicate: bool = False) -> np.ndarray:
     """The global value of a tensor, or of a per-entry list of tensors
     (concatenated along their first axis in mesh order), as one numpy array.
 
+    In a process group of W > 1 processes, ``x`` is this process's pieces of
+    an array sharded over the processes in rank order: every process's
+    pieces are gathered (host copies, ``mesh.all_gather_arrays``) and every
+    rank returns the same global array, as JAX's does. With one process,
     ``force_replicate`` first gathers every piece onto the first piece's
-    device and reads it from there, the path a multi-process mesh would
-    take. A mesh of this port spans one process; a tensor of a process
-    group larger than one process is not gathered yet and raises."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "fetch_global across processes is not ported yet: a codec mesh spans one process")
+    device and reads it from there."""
     parts = [x] if isinstance(x, torch.Tensor) else list(x)
+    if process_rank_and_world()[1] > 1:
+        return np.concatenate(all_gather_arrays(np.concatenate([p.cpu().numpy() for p in parts])))
     if force_replicate:
         home = parts[0].device
         return torch.cat([p.to(home) for p in parts]).cpu().numpy()
@@ -101,6 +117,39 @@ def stage_blocks(data, block_size: int, *, linked: bool = False, pad_rows_to: in
         dlen[i] = d
         tlen[i] = d + blk.shape[0]
     return rows, dlen, tlen, nblocks
+
+
+def _stage_own_rows(staged, block_size: int, *, linked: bool, start: int, layout: MeshLayout,
+                    local: int):
+    """The rows of ``stage_blocks(staged, block_size, linked=linked,
+    pad_rows_to=layout.total, start=start)`` that this process's ``local``
+    entries hold, staged alone: (rows, dlen, tlen, nblocks, per), nblocks
+    the frame's block count and per the rows an entry. A rank whose entries
+    hold padding rows only stages one empty block (its payload is dropped)."""
+    nblocks = max(1, -(-(len(staged) - start) // block_size))
+    per = -(-nblocks // layout.total)
+    s0, s1 = (min(len(staged), start + min(nblocks, g * per) * block_size)
+              for g in (layout.first, layout.first + local))
+    w0 = min(WINDOW_SIZE, s0) if linked else 0
+    rows, dlen, tlen, _ = stage_blocks(staged[s0 - w0 : s1], block_size, linked=linked,
+                                       pad_rows_to=per * local, start=w0)
+    return rows, dlen, tlen, nblocks, per
+
+
+def _gather_blocks(blocks: list[bytes], layout: MeshLayout, counts) -> list[bytes]:
+    """Every rank's blocks, in rank order: their 4-byte sizes, then their
+    bytes (each rank's padded to the longest). ``counts`` are the ranks'
+    block counts, which every rank knows."""
+    if layout.world == 1:
+        return blocks
+    sizes = all_gather_arrays(np.array([len(b) for b in blocks], np.int32), counts)
+    datas = all_gather_arrays(np.frombuffer(b"".join(blocks), np.uint8),
+                              [int(s.sum(dtype=np.int64)) for s in sizes])
+    out = []
+    for size, flat in zip(sizes, datas):
+        ends = np.cumsum(size, dtype=np.int64)
+        out += [flat[e - k : e].tobytes() for k, e in zip(size, ends)]
+    return out
 
 
 def _encode_batch(rows, words, dlen, tlen, *, levels: int, comp_pad: int, nseq_pad: int):
@@ -180,16 +229,31 @@ def encode_geometry(width: int, block_size: int) -> dict:
                 nseq_pad=packing.size_bucket(max(8, width // 4 + 2), minimum=256))
 
 
-def _encode_each_block(buf: bytes, block_size: int, linked: bool, window: bytes, encode):
+def _encode_each_block(buf: bytes, block_size: int, linked: bool, window: bytes, encode,
+                       layout: MeshLayout):
     """``encode(block, dictionary)`` on each block of ``buf`` in turn, a
-    linked block's dictionary being the 64 KiB of input before it."""
-    payloads, lens = [], []
-    for pos in range(0, max(len(buf), 1), block_size):
-        blk = buf[pos : pos + block_size]
-        payloads.append(encode(blk, window))
-        lens.append(len(blk))
-        if linked:
-            window = (window + blk)[-WINDOW_SIZE:]
+    linked block's dictionary being the 64 KiB of input before it
+    (``window`` before block 0). Across W processes each encodes its
+    contiguous W-th of the blocks, and the payloads are gathered."""
+    nblocks = max(1, -(-len(buf) // block_size))
+    per = -(-nblocks // layout.world)
+    spans = [(min(nblocks, r * per), min(nblocks, (r + 1) * per)) for r in range(layout.world)]
+    lo, hi = spans[layout.rank]
+    if linked:
+        window = (window + buf[max(0, lo * block_size - WINDOW_SIZE) : lo * block_size])[-WINDOW_SIZE:]
+
+    def encode_own():
+        nonlocal window
+        payloads = []
+        for i in range(lo, hi):
+            blk = buf[i * block_size : (i + 1) * block_size]
+            payloads.append(encode(blk, window))
+            if linked:
+                window = (window + blk)[-WINDOW_SIZE:]
+        return payloads
+
+    payloads = _gather_blocks(agree(encode_own, layout), layout, [b - a for a, b in spans])
+    lens = [len(buf[i * block_size : (i + 1) * block_size]) for i in range(nblocks)]
     return payloads, lens
 
 
@@ -210,39 +274,50 @@ def encode_blocks_sharded(data, block_size: int, *, linked: bool = False, mesh=N
     host encoder's bytes, counted in ``ops.encode.stats["verify_fallbacks"]``
     (the guard against fingerprint collisions); the hybrid encoder's output
     is spec-valid by construction."""
+    mesh = codec_mesh(mesh)
+    return _encode_blocks_sharded(data, block_size, linked, mesh, mesh_layout(mesh), verify, carry)
+
+
+def _encode_blocks_sharded(data, block_size: int, linked: bool, mesh, layout: MeshLayout,
+                           verify: bool, carry: bytes):
+    """:func:`encode_blocks_sharded` on this process's entries ``mesh`` of
+    the global mesh that ``layout`` describes."""
     from ..ops import encode as E
 
-    mesh = codec_mesh(mesh)
     window = bytes(carry)[-WINDOW_SIZE:] if linked else b""
     buf = bytes(data)
-    if len(mesh) == 1 and block_size >= E._CHUNK_C:
+    if layout.total == 1 and block_size >= E._CHUNK_C:
         return _encode_each_block(buf, block_size, linked, window, lambda blk, d: (
-            E.compress_block_hybrid(blk, ext_dict=d, device=mesh[0])))
+            E.compress_block_hybrid(blk, ext_dict=d, device=mesh[0])), layout)
     if block_size > E._CHUNK_C:
         # Blocks above the fixed chunk width: the chunked all-device encoder
         # one block at a time (its shapes stay fixed), on the mesh's first
         # entry as JAX's runs on the default device.
         return _encode_each_block(buf, block_size, linked, window, lambda blk, d: (
-            E.compress_block_device(blk, ext_dict=d, verify=verify, device=mesh[0])))
+            E.compress_block_device(blk, ext_dict=d, verify=verify, device=mesh[0])), layout)
 
-    staged = window + buf
-    rows, dlen, tlen, nblocks = stage_blocks(staged, block_size, linked=linked,
-                                             pad_rows_to=len(mesh), start=len(window))
-    per = rows.shape[0] // len(mesh)
+    rows, dlen, tlen, nblocks, per = _stage_own_rows(
+        window + buf, block_size, linked=linked, start=len(window), layout=layout, local=len(mesh))
     geo = encode_geometry(rows.shape[1], block_size)
-    payloads = []
-    for d, dev in enumerate(mesh):
-        sl = slice(d * per, (d + 1) * per)
-        payloads += _encode_staged(rows[sl], dlen[sl], tlen[sl], dev, geo)
+    first_row = layout.first * per  # global index of this process's row 0
+
+    def encode_own():
+        payloads = []
+        for d, dev in enumerate(mesh):
+            sl = slice(d * per, (d + 1) * per)
+            payloads += _encode_staged(rows[sl], dlen[sl], tlen[sl], dev, geo)
+        if verify:
+            for i in range(min(len(payloads), nblocks - first_row)):
+                d, n = int(dlen[i]), int(tlen[i])
+                if not _native.verify_block(payloads[i], rows[i, d:n], rows[i, :d]):
+                    # a fingerprint collision overstated a match
+                    E.stats["verify_fallbacks"] += 1
+                    payloads[i] = compress_with_dict(rows[i, d:n], rows[i, :d])
+        return payloads
+
+    payloads = _gather_blocks(agree(encode_own, layout), layout, [per * len(mesh)] * layout.world)
     del payloads[nblocks:]
-    lens = [int(tlen[i] - dlen[i]) for i in range(nblocks)]
-    if verify:
-        for i in range(nblocks):
-            d, n = int(dlen[i]), int(tlen[i])
-            if not _native.verify_block(payloads[i], rows[i, d:n], rows[i, :d]):
-                # a fingerprint collision overstated a match
-                E.stats["verify_fallbacks"] += 1
-                payloads[i] = compress_with_dict(rows[i, d:n], rows[i, :d])
+    lens = [min(block_size, len(buf) - i * block_size) for i in range(nblocks)]
     return payloads, lens
 
 
@@ -254,10 +329,13 @@ def encode_blocks(data, block_size: int, *, linked: bool = False, carry: bytes =
     (payloads, block_lens, window), the window empty unless ``linked``."""
     from ..ops.ringdecode import resolve_device
 
-    if mesh is None:
+    if mesh is None:  # one device of this process, whatever group runs: no gathers
         mesh = [resolve_device(device)]
-    payloads, lens = encode_blocks_sharded(data, block_size, linked=linked, mesh=mesh,
-                                           verify=verify, carry=carry)
+        layout = MeshLayout(0, 1, 0, 1)
+    else:
+        mesh = codec_mesh(mesh)
+        layout = mesh_layout(mesh)
+    payloads, lens = _encode_blocks_sharded(data, block_size, linked, mesh, layout, verify, carry)
     if not linked:
         return payloads, lens, b""
     return payloads, lens, (bytes(carry)[-WINDOW_SIZE:] + bytes(data[-WINDOW_SIZE:]))[-WINDOW_SIZE:]
@@ -299,35 +377,47 @@ def roundtrip_step_sharded(data, block_size: int, *, mesh=None):
 
     Returns (comp_payload_rows (B, C) uint8, comp_lens (B,) int32,
     assembly_offsets (B,) int32, ok () bool), on the mesh's first entry.
-    The decode is host-bound: ``_decode_batch`` decodes rows one after
-    another."""
+    Across processes each encodes and decodes its own entries' rows, and
+    the rows, lengths and flags are gathered, so every rank returns the
+    global result. The decode is host-bound: ``_decode_batch`` decodes rows
+    one after another."""
     mesh = codec_mesh(mesh)
-    rows, dlen, tlen, _ = stage_blocks(data, block_size, pad_rows_to=len(mesh))
+    layout = mesh_layout(mesh)
+    rows, dlen, tlen, _, per = _stage_own_rows(data, block_size, linked=False, start=0,
+                                               layout=layout, local=len(mesh))
     width = rows.shape[1]
     geo = encode_geometry(width, block_size)
     out_pad = packing.size_bucket(block_size)
     dec_nseq_pad = packing.size_bucket(max(8, geo["comp_pad"] // 3 + 2), minimum=256)
-    per = rows.shape[0] // len(mesh)
-    comps, totals, oks = [], [], []
-    for d, dev in enumerate(mesh):
-        sl = slice(d * per, (d + 1) * per)
-        r = torch.from_numpy(rows[sl]).to(dev)
-        dl, tl = torch.from_numpy(dlen[sl]).to(dev), torch.from_numpy(tlen[sl]).to(dev)
-        comp, total = _encode_batch(r, r.view(torch.int32), dl, tl, **geo)
-        out, out_total, _errs = _decode_batch(comp, total, out_pad=out_pad, nseq_pad=dec_nseq_pad)
-        blen = tl - dl
-        w = min(out_pad, width)
-        mask = torch.arange(w, device=dev)[None, :] < blen[:, None]
-        ok = (torch.where(mask, out[:, :w] == r[:, :w], True).all()
-              & (out_total == blen).all())
-        comps.append(comp)
-        totals.append(total)
-        oks.append(ok)
+
+    def step_own():
+        comps, totals, oks = [], [], []
+        for d, dev in enumerate(mesh):
+            sl = slice(d * per, (d + 1) * per)
+            r = torch.from_numpy(rows[sl]).to(dev)
+            dl, tl = torch.from_numpy(dlen[sl]).to(dev), torch.from_numpy(tlen[sl]).to(dev)
+            comp, total = _encode_batch(r, r.view(torch.int32), dl, tl, **geo)
+            out, out_total, _errs = _decode_batch(comp, total, out_pad=out_pad,
+                                                  nseq_pad=dec_nseq_pad)
+            blen = tl - dl
+            w = min(out_pad, width)
+            mask = torch.arange(w, device=dev)[None, :] < blen[:, None]
+            ok = (torch.where(mask, out[:, :w] == r[:, :w], True).all()
+                  & (out_total == blen).all())
+            comps.append(comp)
+            totals.append(total)
+            oks.append(ok[None])
+        return comps, totals, oks
+
+    comps, totals, oks = agree(step_own, layout)
     home = mesh[0]
-    all_lens = torch.cat([t.to(home) for t in totals])
+    if layout.world == 1:
+        comp, all_lens, ok = (torch.cat([t.to(home) for t in ts]) for ts in (comps, totals, oks))
+    else:
+        comp, all_lens, ok = (torch.from_numpy(fetch_global(ts)).to(home)
+                              for ts in (comps, totals, oks))
     offsets = torch.cumsum(all_lens, 0, dtype=torch.int32) - all_lens
-    ok = torch.stack([o.to(home) for o in oks]).all()
-    return torch.cat([c.to(home) for c in comps]), all_lens, offsets, ok
+    return comp, all_lens, offsets, ok.all()
 
 
 def _stage_ring_group(group, block_size: int, nthreads: int):
@@ -408,22 +498,29 @@ def stack_ring_plans(plans, tile_rows: int):
 def decode_blocks_sharded_ring(payloads, block_size: int, *, mesh=None):
     """Ring-engine mesh decode of independent compressed block payloads.
 
-    The blocks split into ``len(mesh)`` contiguous groups, one a mesh
-    entry; every group's plan is built at once (:func:`stage_ring_groups`).
+    The blocks split into one contiguous group a global mesh entry; this
+    process builds its entries' plans at once (:func:`stage_ring_groups`).
     The plans of the entries that share a device are padded to one (ntiles,
     nf) shape, stacked and uploaded through pinned memory, and decoded by
     one launch of the grouped ring kernel K1c (``ring_decode_grouped``: one
     CTA per plan; its plain version on CPU tensors). Each device's output
-    is read once and cut into blocks by their sizes. Returns list[bytes], or
-    None when any group overflows the static plan shape (the caller takes
-    the resident decoder)."""
+    is read once and cut into blocks by their sizes; across processes the
+    blocks are then gathered. Returns list[bytes], or None when any group
+    of any process overflows the static plan shape (the caller takes the
+    resident decoder)."""
+    mesh = codec_mesh(mesh)
+    return _decode_ring(payloads, block_size, mesh, mesh_layout(mesh))
+
+
+def _decode_ring(payloads, block_size: int, mesh, layout: MeshLayout):
+    """:func:`decode_blocks_sharded_ring` on this process's entries ``mesh``
+    of the global mesh that ``layout`` describes."""
     from ..ops import ringdecode as RD
 
-    mesh = codec_mesh(mesh)
     nblocks = len(payloads)
-    per = -(-nblocks // len(mesh)) if nblocks else 1
-    groups = [payloads[i * per : (i + 1) * per] for i in range(len(mesh))]
-    staged = stage_ring_groups(groups, block_size)
+    per = -(-nblocks // layout.total) if nblocks else 1
+    groups = [payloads[g * per : (g + 1) * per] for g in layout.entries(len(mesh))]
+    staged = agree(lambda: stage_ring_groups(groups, block_size), layout)
     if staged is None:
         return None
 
@@ -453,7 +550,9 @@ def decode_blocks_sharded_ring(payloads, block_size: int, *, mesh=None):
         for sz in s[1]:
             blocks.append(b"" if flat is None else flat[pos : pos + sz].tobytes())
             pos += sz
-    return blocks
+    span = per * len(mesh)  # blocks a process
+    return _gather_blocks(blocks, layout, [len(payloads[r * span : (r + 1) * span])
+                                           for r in range(layout.world)])
 
 
 def decode_blocks_sharded(payloads, block_size: int, *, mesh=None):
@@ -467,43 +566,55 @@ def decode_blocks_sharded(payloads, block_size: int, *, mesh=None):
     from ..ops.ringdecode import stats
 
     mesh = codec_mesh(mesh)
-    ring = decode_blocks_sharded_ring(payloads, block_size, mesh=mesh)
+    layout = mesh_layout(mesh)
+    ring = _decode_ring(payloads, block_size, mesh, layout)
     if ring is not None:
         return ring
     stats["overflow_sharded_decodes"] += 1
-    return _decode_blocks_sharded_resident(payloads, block_size, mesh=mesh)
+    return _decode_resident(payloads, block_size, mesh, layout)
 
 
 def _decode_blocks_sharded_resident(payloads, block_size: int, *, mesh=None):
     """The resident-decoder mesh decode, the fallback when a ring plan
     overflows (the JAX package's ``_decode_blocks_sharded_xla``): payload
-    rows padded to a multiple of the mesh size, each entry's span decoded
-    by ``_decode_batch`` on its device, the error flags of the first bad
-    block raised as the block error they name."""
+    rows padded to a multiple of the global mesh size, each entry's span
+    decoded by ``_decode_batch`` on its device, the flags, lengths and
+    outputs gathered across processes, and the error flags of the first bad
+    block raised, on every rank, as the block error they name."""
     mesh = codec_mesh(mesh)
-    ndev = len(mesh)
+    return _decode_resident(payloads, block_size, mesh, mesh_layout(mesh))
+
+
+def _decode_resident(payloads, block_size: int, mesh, layout: MeshLayout):
+    """:func:`_decode_blocks_sharded_resident` on this process's entries
+    ``mesh`` of the global mesh that ``layout`` describes."""
     nblocks = len(payloads)
-    b_pad = max(ndev, -(-nblocks // ndev) * ndev)
+    per = max(1, -(-nblocks // layout.total))
     # +1: the device parser needs at least one zero pad byte after each
     # payload to detect blocks truncated mid-LSIC run.
     width = packing.size_bucket(max(max((len(p) for p in payloads), default=4), 4) + 1)
-    rows = np.zeros((b_pad, width), dtype=np.uint8)
-    clen = np.ones(b_pad, dtype=np.int32)  # padding rows: one empty-block token
-    for i, p in enumerate(payloads):
+    first = layout.first * per  # global index of this process's row 0
+    rows = np.zeros((per * len(mesh), width), dtype=np.uint8)
+    clen = np.ones(rows.shape[0], dtype=np.int32)  # padding rows: one empty-block token
+    for i, p in enumerate(payloads[first : first + rows.shape[0]]):
         rows[i, : len(p)] = np.frombuffer(p, np.uint8)
         clen[i] = len(p)
     out_pad = packing.size_bucket(block_size)
     nseq_pad = packing.size_bucket(max(8, width // 3 + 2), minimum=256)
-    per = b_pad // ndev
-    outs, totals, errs = [], [], []
-    for d, dev in enumerate(mesh):
-        sl = slice(d * per, (d + 1) * per)
-        o, t, e = _decode_batch(torch.from_numpy(rows[sl]).to(dev),
-                                torch.from_numpy(clen[sl]).to(dev),
-                                out_pad=out_pad, nseq_pad=nseq_pad, capacity=block_size)
-        outs.append(o)
-        totals.append(t)
-        errs.append(e)
+
+    def decode_own():
+        outs, totals, errs = [], [], []
+        for d, dev in enumerate(mesh):
+            sl = slice(d * per, (d + 1) * per)
+            o, t, e = _decode_batch(torch.from_numpy(rows[sl]).to(dev),
+                                    torch.from_numpy(clen[sl]).to(dev),
+                                    out_pad=out_pad, nseq_pad=nseq_pad, capacity=block_size)
+            outs.append(o)
+            totals.append(t)
+            errs.append(e)
+        return outs, totals, errs
+
+    outs, totals, errs = agree(decode_own, layout)
     errs_h = fetch_global(errs)[:nblocks]
     total_h = fetch_global(totals)
     if errs_h.any():

@@ -17,6 +17,12 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch.block",
     "lz4_flex_tpu_torch.block.errors",
     "lz4_flex_tpu_torch.cli",
+    "lz4_flex_tpu_torch.examples",
+    "lz4_flex_tpu_torch.examples.compress",
+    "lz4_flex_tpu_torch.examples.compress_block",
+    "lz4_flex_tpu_torch.examples.decompress",
+    "lz4_flex_tpu_torch.examples.decompress_block",
+    "lz4_flex_tpu_torch.examples.device_pipeline",
     "lz4_flex_tpu_torch.experiments",
     "lz4_flex_tpu_torch.experiments.fire_probe",
     "lz4_flex_tpu_torch.experiments.gather_probe",
@@ -45,6 +51,8 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch.parallel.pipeline",
     "lz4_flex_tpu_torch.spec",
     "lz4_flex_tpu_torch.spec.constants",
+    "lz4_flex_tpu_torch.spec.golden",
+    "lz4_flex_tpu_torch.spec.xxhash32",
     "lz4_flex_tpu_torch.utils",
     "lz4_flex_tpu_torch.utils.checksum",
     "chip_smoke",
@@ -89,6 +97,7 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     import numpy as np
 
     from lz4_flex_tpu import block, frame
+    from lz4_flex_tpu_torch.examples import device_pipeline
     from lz4_flex_tpu_torch.frame import (
         BlockSize,
         FrameDecoder,
@@ -145,6 +154,7 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         lambda: decode_blocks_sharded([comp], 65536),
         lambda: decompress_frame_device(f, mesh=["cuda:0"] * 2),
         lambda: LZ4Codec(mesh=["cuda"]).compress(data),
+        lambda: device_pipeline.main([]),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
