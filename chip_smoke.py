@@ -58,7 +58,14 @@ Phases (any failure raises and the exit code is not 0):
    byte-exact: ``decode_block_device(parse="host")`` with v1 and v2 and
    ``parse="device"``, ``decode_parts_fused`` on phase 3's two frame bodies
    and ``LZ4Codec.decode_step`` on a batch of 32 blocks of 64 KiB, with no
-   K1 launch; stage times (map build, resolution, materialization, parse)
+   K1 launch. The batched programs (the JAX package's ``vmap`` over rows:
+   ``parse_rows``, ``expand_core`` and ``expand2_core`` on (B, ...)
+   tables, ``decode_resident_rows``) on 8 rows of 64 KiB with one malformed
+   row held bit-equal to their CPU run, each row equal to it decoded alone;
+   ``decode_step`` on device tensors at B=1, 8, 32 and 160 (the whole soup)
+   byte-exact, with its time, device events, peak device memory and bytes
+   bound; its device events at B=32 must stay within 1.5x of B=1's. Stage
+   times (map build, resolution, materialization, parse)
    and end to end beside the ring engine and the native host decoder. The
    walk and strided parses on one 64 KiB block, timed and held against the
    doubling parse and their CPU run. Then a one-step NFMAX ladder forces
@@ -120,7 +127,8 @@ Phases (any failure raises and the exit code is not 0):
    overflow; each rank's groups through K1c are held against
    ``ring_decode_grouped_reference`` (byte-exact). A forced overflow on rank
    1 alone (8 blocks) sends both ranks to the resident decoder, byte-exact,
-   with no K1 launch; a corrupted block in rank 1's span raises
+   with no K1 launch, timed on its first call in the process and again; a
+   corrupted block in rank 1's span raises
    ``OffsetOutOfBounds`` on both ranks. The two-process wall times print
    beside phase 10's one-process N=4 and N=8 times. A worker that fails,
    times out or disagrees fails the run.
@@ -177,6 +185,7 @@ def main() -> None:
     from lz4_flex_tpu_torch.ops import ringdecode as R
     from lz4_flex_tpu_torch.ops.decode import decode_block_device
     from lz4_flex_tpu_torch.ops.sequences import parse_sequences_host
+    from lz4_flex_tpu_torch.parallel import pipeline as PP
     from lz4_flex_tpu_torch.spec.constants import LZ4F_LEGACY_MAGIC_NUMBER
     from lz4_flex_tpu_torch.utils.checksum import xxh32
 
@@ -508,11 +517,12 @@ def main() -> None:
             sizes.append(k)
         return sizes
 
-    def device_busy(fn, label: str, top: int = 0) -> None:
+    def device_busy(fn, label: str, top: int = 0) -> int:
         """One call of ``fn`` under torch.profiler: the union of the card's
         kernel and copy intervals against the host's wall time of the call
         (the profiler's own host cost inflates the wall, so the share is a
-        lower bound), and with ``top`` the kernels that took the most."""
+        lower bound), and with ``top`` the kernels that took the most.
+        Returns the count of device events (kernels and copies)."""
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -525,7 +535,7 @@ def main() -> None:
         if not spans:
             print(f"  {label}: device busy share not measured (the profiler saw no device "
                   f"event) [{card}]")
-            return
+            return 0
         busy, end = 0.0, float("-inf")
         for s, e in spans:
             if e > end:
@@ -537,6 +547,7 @@ def main() -> None:
                       key=lambda a: -a.self_device_time_total)
         for a in kern[:top]:
             print(f"    {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:90]}")
+        return len(spans)
 
     legacy_f, legacy_parts = bytearray(struct.pack("<I", LZ4F_LEGACY_MAGIC_NUMBER)), []
     for i in range(0, n, 8 * MIB):
@@ -810,6 +821,90 @@ def main() -> None:
     fused_path(f"LZ4Codec.decode_step ({len(step_parts)} blocks of 64 KiB)", decode_step,
                b"".join(step_blocks))
 
+    # The batched programs (the JAX package's vmap over rows): the first 64 KiB of
+    # each of phase 2's blocks and of the 10 MiB soup as payload rows, with one
+    # malformed row (offset zero) among them; on the card against the CPU, and
+    # each row of the batched resident decode against the same row decoded alone.
+    brows_raw = [b[:65536] for b in blocks.values()] + [data[:65536]]
+    bpay = [native.compress_block(b) for b in brows_raw]
+    bad_row = 3
+    bpay.insert(bad_row, bytes([0x12, 0x41, 0x00, 0x00]))
+    brows_raw.insert(bad_row, None)
+    bwidth = packing.size_bucket(max(len(p) for p in bpay) + 1)
+    bu8 = np.zeros((len(bpay), bwidth), np.uint8)
+    for i, p in enumerate(bpay):
+        bu8[i, : len(p)] = np.frombuffer(p, np.uint8)
+    blen = np.array([len(p) for p in bpay], np.int32)
+    bnseq = packing.size_bucket(bwidth // 3 + 2, minimum=256)
+    prs_b = on_both(P.parse_rows, [bu8, blen], nseq_pad=bnseq)
+    ls_b, ll_b, mo_b, _, oo_b, nseq_b, total_b, _ = prs_b[1]
+    real_b = torch.arange(bnseq) < nseq_b[:, None]
+    btables = [torch.where(real_b, oo_b, 65536).numpy(), ls_b.numpy(), ll_b.numpy(),
+               torch.where(real_b, mo_b, 1).numpy()]
+    bwords = packing.bytes_to_words(torch.from_numpy(bu8)).numpy()
+    bexp = [bwords, np.zeros((len(bpay), 1), np.int32), *btables, total_b.numpy()]
+    v1_b = on_both(lambda *t: D.expand_core(*t[:6], 0, t[6], out_pad=65536, has_dict=False), bexp)
+    v2_b = on_both(lambda *t: X.expand2_core(*t[:6], 0, t[6], out_pad=65536, has_dict=False), bexp)
+    res_b = on_both(D.decode_resident_rows, [bu8, blen], out_pad=65536, nseq_pad=bnseq)
+    batch_err = max(err(*x) for x in (prs_b, v1_b, v2_b, res_b))
+    bu8_d = torch.from_numpy(bu8).cuda()
+    alone = [D.decode_resident_core(bu8_d[i], int(blen[i]), out_pad=65536, nseq_pad=bnseq)
+             for i in range(len(bpay))]
+    alone_err = max(err(tuple(t[i] for t in res_b[0]), tuple(t.cpu() for t in a))
+                    for i, a in enumerate(alone))
+    out_b, tot_b, flags_b = (t.cpu() for t in res_b[0])
+    batch_ok = flags_b[bad_row].tolist() == [False, False, True, False, False] and all(
+        out_b[i, : int(tot_b[i])].numpy().tobytes() == raw and not bool(flags_b[i].any())
+        for i, raw in enumerate(brows_raw) if raw is not None)
+    print(f"  batched programs, {len(bpay)} rows of 64 KiB blocks (row {bad_row} offset zero): "
+          f"max_abs_err card against CPU parse_rows/expand_core/expand2_core/decode_resident_rows "
+          f"{batch_err}, each row against it decoded alone {alone_err}, bytes and flags "
+          f"{'exact' if batch_ok else 'WRONG'} [{card}]", flush=True)
+    if batch_err or alone_err or not batch_ok:
+        raise SystemExit("chip_smoke: a batched program differs on the card")
+
+    # decode_step on device tensors at B = 1, 8, 32 and 160 (all of the 10 MiB soup)
+    all_blocks = [data[i : i + 65536] for i in range(0, n, 65536)]
+    all_parts = [native.compress_block(b) for b in all_blocks]
+    awidth = packing.size_bucket(max(len(p) for p in all_parts) + 1)
+    arows = np.zeros((len(all_parts), awidth), np.uint8)
+    for i, p in enumerate(all_parts):
+        arows[i, : len(p)] = np.frombuffer(p, np.uint8)
+    alens = np.array([len(p) for p in all_parts], np.int32)
+    arows_d, alens_d = torch.from_numpy(arows).cuda(), torch.from_numpy(alens).cuda()
+    codec64 = LZ4Codec(cfg64)
+    step_events = {}
+    for b in (1, 8, 32, len(all_parts)):
+        r, lens_b = arows_d[:b], alens_d[:b]
+        out, total, flags = codec64.decode_step(r, lens_b)
+        if (bool(flags.any()) or total.tolist() != [len(x) for x in all_blocks[:b]]
+                or out[:, :65536].cpu().numpy().tobytes() != b"".join(all_blocks[:b])):
+            raise SystemExit(f"chip_smoke: decode_step at B={b} decoded wrong")
+        ms = host_ms(lambda: (codec64.decode_step(r, lens_b), torch.cuda.synchronize()), 3)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        codec64.decode_step(r, lens_b)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        step_events[b] = device_busy(lambda: codec64.decode_step(r, lens_b),
+                                     f"decode_step B={b} (profiled)")
+        # payloads in; bytes, lengths and flags out
+        moved = int(alens[:b].sum()) + b * 65536 + b * (4 + 5)
+        bound = moved / FP.HBM_BYTES_PER_S * 1e3
+        print(f"  LZ4Codec.decode_step B={b:3d} x 64 KiB (device tensors in and out): {ms:.3f} ms "
+              f"= {b * 65536 / MIB / (ms / 1e3):.1f} MiB/s, {step_events[b]} device events, peak "
+              f"device memory {peak / MIB:.1f} MiB ({(peak - before) / MIB:.1f} above what was "
+              f"held before the call), bytes bound {bound:.5f} ms; dispatch cap "
+              f"{PP._DECODE_POSITIONS} positions [{card}]",
+              flush=True)
+    print(f"  decode_step on all {len(all_parts)} blocks beside the 10 MiB soup as one block: "
+          f"decode_block_device (ring) {e2e_ms:.3f} ms, native host decoder {host_dec_ms:.3f} ms "
+          f"(phase 4); launches at B=32 / B=1 {step_events[32] / step_events[1]:.3f} [{card}]",
+          flush=True)
+    if step_events[32] > 1.5 * step_events[1]:
+        raise SystemExit(f"chip_smoke: decode_step's launches grow with the batch: {step_events}")
+
     # stage times of the v2 engine and the doubling parse on the 10 MiB soup
     seq, out_pad, nseq_pad, words, tables, u8 = engine_inputs(comp)
     cw, tb, cu = (torch.from_numpy(words).cuda(), [torch.from_numpy(t).cuda() for t in tables],
@@ -919,7 +1014,6 @@ def main() -> None:
     print(f"phase 9: all-device encode (torch ops; tolerance: bit-exact against the same "
           f"functions on the CPU, byte-exact against the data) [{card}]", flush=True)
     t_phase9 = time.perf_counter()
-    from lz4_flex_tpu_torch.parallel import pipeline as PP
 
     programs = ("match_core", "emit_core", "encode_chunk_core", "_match_quad", "_merge_emit")
     prog_calls = dict.fromkeys(programs, 0)  # calls on the main paths below
@@ -1484,6 +1578,7 @@ def main() -> None:
             raise SystemExit(f"chip_smoke: K1c and its plain version disagree on rank {st['rank']}")
         s = st["overflow"]["counts"]
         if (st["overflow"]["decoded"] != digest(data[: 8 * 65536])
+                or st["overflow"]["again_decoded"] != digest(data[: 8 * 65536])
                 or s["overflow_sharded_decodes"] != 1 or s["kernel_launches"]):
             raise SystemExit(f"chip_smoke: forced overflow on rank 1: rank {st['rank']}: {s}")
         if st["corrupt"] != "OffsetOutOfBounds":
@@ -1492,7 +1587,9 @@ def main() -> None:
     print(f"  the host gather alone, {n // MESH_WORLD} bytes a rank over gloo: " + ", ".join(
         f"rank {st['rank']} {st['gather_ms']:.3f} ms" for st in ranks) + f" [{card}]", flush=True)
     print(f"  forced overflow on rank 1 alone: both ranks byte-exact through the resident decoder, "
-          f"no K1 launch ({', '.join(f'{st["overflow"]["ms"]:.3f}' for st in ranks)} ms); "
+          f"no K1 launch ({', '.join(f'{st["overflow"]["ms"]:.3f}' for st in ranks)} ms; "
+          f"the same call again {', '.join(f'{st["overflow"]["again_ms"]:.3f}' for st in ranks)} "
+          f"ms); "
           f"a corrupted block on rank 1: OffsetOutOfBounds on both ranks; K1c max_abs_err 0 on "
           f"each rank's groups [{card}]", flush=True)
     print(f"  phase 11 took {time.perf_counter() - t_phase11:.1f} s", flush=True)
@@ -1633,9 +1730,14 @@ def mesh_worker(address: str, rank: int, world: int, work: str) -> None:
     try:
         blocks, counts, ms = counted(
             lambda: PP.decode_blocks_sharded(payloads[:8], 65536, mesh=["cuda:0"] * MESH_LOCAL[0]))
+        # the same call again: the first one in this process also pays for loading
+        # the resident decoder's kernels
+        again = counted(
+            lambda: PP.decode_blocks_sharded(payloads[:8], 65536, mesh=["cuda:0"] * MESH_LOCAL[0]))
     finally:
         R.NFMAX_STEPS, R.NFMAX_RETRY, R._nfmax_hint[0], native.decompress_block = saved
-    report["overflow"] = dict(decoded=digest(b"".join(blocks)), counts=counts, ms=ms)
+    report["overflow"] = dict(decoded=digest(b"".join(blocks)), counts=counts, ms=ms,
+                              again_ms=again[2], again_decoded=digest(b"".join(again[0])))
 
     # a block of rank 1's span corrupted: a match reaching before the block's start
     bad = list(payloads)

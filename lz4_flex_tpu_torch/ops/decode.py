@@ -26,7 +26,8 @@ whole output:
 is v2 (fragment cells, the default). ``parse="host"`` feeds them the native
 parser's sequence table, ``parse="device"`` the on-device parse of
 ops/parse.py; ``decode_resident_core`` fuses the device parse and an
-expansion with input and output on the device.
+expansion with input and output on the device, and ``decode_resident_rows``
+does so for a batch of blocks as rows in one batched program.
 """
 
 from __future__ import annotations
@@ -59,9 +60,15 @@ def expand_core(
     has_dict: bool,
 ) -> torch.Tensor:
     """The v1 expansion: (out_pad,) uint8 on the tables' device; see the
-    module docstring for the three stages."""
+    module docstring for the three stages. A batch of blocks as rows, (B,
+    ...) tensors and (B,) counts, gives (B, out_pad), each row as it would
+    be alone."""
+    if seq_oo.dim() == 1:
+        return expand_core(comp_words[None], dict_words[None], seq_oo[None], seq_ls[None],
+                           seq_ll[None], seq_mo[None], dict_len, total_out,
+                           out_pad=out_pad, has_dict=has_dict)[0]
     dev = seq_oo.device
-    comp_pad = comp_words.shape[0] * 4
+    comp_pad = comp_words.shape[1] * 4
     pout = torch.arange(out_pad, dtype=torch.int32, device=dev)
 
     # Stages 1+2 fused: the per-byte source map is piecewise affine in the
@@ -72,10 +79,10 @@ def expand_core(
     # sparse scatter-adds of per-sequence deltas and two cumulative sums.
     off_i = seq_mo.clamp(min=1)  # sanitized: offset 0 would never resolve
     c_i = seq_ls - seq_oo
-    prev_off = torch.cat([off_i.new_zeros(1), off_i[:-1]])
+    prev_off = torch.cat([off_i.new_zeros(off_i.shape[0], 1), off_i[:, :-1]], 1)
     lit_starts = seq_oo  # padding seqs carry out_off == out_pad -> dropped
     match_starts = (seq_oo + seq_ll).clamp(0, out_pad)
-    zeros = torch.zeros(out_pad, dtype=torch.int32, device=dev)
+    zeros = torch.zeros((seq_oo.shape[0], out_pad), dtype=torch.int32, device=dev)
 
     V = packing.scatter_drop(zeros, lit_starts, c_i - prev_off, "add")
     V = packing.scatter_drop(V, match_starts, off_i - c_i, "add")
@@ -88,42 +95,45 @@ def expand_core(
     is_lit = F > 0
     lit_k = pout + V  # = lit_start + (p - out_off)
     msrc = pout - V  # = p - offset
-    dict_k = comp_pad + (dict_len + msrc).clamp(0, dict_words.shape[0] * 4 - 1)
+    dict_k = comp_pad + (packing.per_row(dict_len) + msrc).clamp(
+        0, dict_words.shape[1] * 4 - 1)
     s = torch.where(is_lit, -(lit_k + 1), torch.where(msrc >= 0, msrc, -(dict_k + 1)))
-    s = torch.where(pout < total_out, s, -1)
+    s = torch.where(pout < packing.per_row(total_out), s, -1)
 
     # Pointer doubling: two dense rounds collapse chains of depth <= 4, then
-    # the surviving positions (typically a few percent) are compacted into a
-    # small workset and chased there, or, if the workset overflows, over the
-    # whole map. One device scalar is read a round.
+    # each row's surviving positions (typically a few percent) are compacted
+    # into a small workset and chased there, or, if its workset overflows,
+    # over its whole map (the JAX package's lax.cond, per row under vmap).
+    # The loops run while any row is live, one device scalar a round; a row
+    # whose loop has ended is left as it stands.
     def dense_round(s):
-        g = s[s.clamp(0, out_pad - 1)]
+        g = torch.gather(s, 1, s.clamp(0, out_pad - 1).long())
         return torch.where(s >= 0, g, s)
 
     s = dense_round(dense_round(s))
 
     un_pad = max(4096, out_pad // 8)
     mask = s >= 0
-    cnt = int(mask.sum())
+    cnt = mask.sum(1)
     rank = packing.tiled_cumsum(mask.to(torch.int32)) - 1
     # Sentinel entries point at position 0 (always resolved: position 0 has
     # no earlier output to copy from); their write-back is a no-op.
     uidx = packing.scatter_drop(
-        torch.zeros(un_pad, dtype=torch.int32, device=dev), torch.where(mask, rank, un_pad), pout)
+        torch.zeros((s.shape[0], un_pad), dtype=torch.int32, device=dev),
+        torch.where(mask, rank, un_pad), pout).long()
 
-    active, i = cnt > 0, 0
-    while active and i < _MAX_DOUBLING_ROUNDS:
-        if cnt <= un_pad:
-            su = s[uidx]
-            g = s[su.clamp(0, out_pad - 1)]
-            new = torch.where(su >= 0, g, su)
-            s = s.clone()
-            s[uidx] = new
-            active = bool((new >= 0).any())
-        else:
-            s = dense_round(s)
-            active = bool((s >= 0).any())
-        i += 1
+    started = mask.any(1)
+    live, i = started & (cnt <= un_pad), 0
+    while i < _MAX_DOUBLING_ROUNDS and bool(live.any()):
+        su = torch.gather(s, 1, uidx)
+        g = torch.gather(s, 1, su.clamp(0, out_pad - 1).long())
+        new = torch.where(live[:, None] & (su >= 0), g, su)
+        s = s.scatter(1, uidx, new)
+        live, i = live & (new >= 0).any(1), i + 1
+    live, i = started & (cnt > un_pad), 0
+    while i < _MAX_DOUBLING_ROUNDS and bool(live.any()):
+        s = torch.where(live[:, None], dense_round(s), s)
+        live, i = live & (s >= 0).any(1), i + 1
 
     # Stage 3: materialize bytes from the resolved sources.
     k = -s - 1
@@ -165,26 +175,54 @@ def decode_resident_core(
     and an expansion, with input and output on ``u8``'s device (compressed
     bytes feed a device pipeline without a trip to the host). ``u8`` is the
     payload padded with at least one zero byte, ``clen`` its length (int or
-    () tensor). Returns (out (out_pad,) uint8, total_out, error_flags).
+    () tensor). Returns (out (out_pad,) uint8, total_out, error_flags):
+    the batched body of :func:`decode_resident_rows` on a batch of one.
 
     error_flags is a (5,) bool tensor: [literal_oob, truncated, offset_zero,
     offset_oob, output_too_small], the checked-decode error set of lz4_flex
     src/block/mod.rs:82-98 plus the capacity check."""
-    from .parse import parse_core, parse_walk_core
+    from .parse import parse_rows, parse_walk_core, row_lengths
 
-    parse = parse_walk_core if parse_engine == "walk" else parse_core
-    ls, ll, mo, ml, oo, nseq, total, errs = parse(u8, clen, nseq_pad=nseq_pad)
-    real = torch.arange(nseq_pad, dtype=torch.int32, device=u8.device) < nseq
+    if parse_engine == "walk":
+        tables = [t[None] for t in parse_walk_core(u8, clen, nseq_pad=nseq_pad)]
+    else:
+        tables = parse_rows(u8[None], row_lengths(clen, 1, u8.device), nseq_pad=nseq_pad)
+    out = _expand_parsed(u8[None], tables, out_pad=out_pad, capacity=capacity,
+                         expand_engine=expand_engine)
+    return tuple(t[0] for t in out)
+
+
+def decode_resident_rows(u8, clen, *, out_pad, nseq_pad, capacity=None, expand_engine=None):
+    """:func:`decode_resident_core` over a batch of independent blocks, the
+    JAX package's ``vmap`` of it with the doubling parse: ``u8`` (B, pad)
+    payload rows, each padded with at least one zero byte, ``clen`` their
+    (B,) lengths -> ((B, out_pad) uint8 outputs, (B,) int32 lengths, (B, 5)
+    bool flags). One batched parse and one batched expansion; row b's
+    results, malformed or not, are those of row b decoded alone."""
+    from .parse import parse_rows, row_lengths
+
+    tables = parse_rows(u8, row_lengths(clen, u8.shape[0], u8.device), nseq_pad=nseq_pad)
+    return _expand_parsed(u8, tables, out_pad=out_pad, capacity=capacity,
+                          expand_engine=expand_engine)
+
+
+def _expand_parsed(u8, tables, *, out_pad, capacity, expand_engine):
+    """The checks and the expansion of the resident decode, on (B, ...)
+    parse tables of the (B, pad) payload rows ``u8``."""
+    ls, ll, mo, ml, oo, nseq, total, errs = tables
+    nseq_pad = ls.shape[1]
+    real = torch.arange(nseq_pad, dtype=torch.int32, device=u8.device) < nseq[:, None]
     # Checked-decode bounds the parse flags cannot see: a match reaching
     # before the block start (no dict in the resident path) and an output
     # beyond the static capacity.
-    off_oob = (real & (ml > 0) & (oo + ll - mo < 0)).any()
+    off_oob = (real & (ml > 0) & (oo + ll - mo < 0)).any(1)
     out_oob = total > (out_pad if capacity is None else capacity)
-    errs = torch.cat([errs, torch.stack([off_oob, out_oob])])
+    errs = torch.cat([errs, torch.stack([off_oob, out_oob], 1)], 1)
     oo = torch.where(real, oo, out_pad)
     mo = torch.where(real, mo, 1)
     out = _expand_fn(expand_engine)(
-        packing.bytes_to_words(u8), torch.zeros(1, dtype=torch.int32, device=u8.device),
+        packing.bytes_to_words(u8),
+        torch.zeros((u8.shape[0], 1), dtype=torch.int32, device=u8.device),
         oo, ls, ll, mo, 0, total, out_pad=out_pad, has_dict=False,
     )
     return out, total, errs

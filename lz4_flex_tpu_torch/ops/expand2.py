@@ -24,9 +24,12 @@ src/block/decompress.rs:244-444) as data-parallel passes:
      own; cells with more fragments are compacted and finished in a second
      tier (a W-byte cell holds at most W fragments).
 
-Loops whose trip count the data decides (the resolution rounds) are Python
-loops that read one device scalar a round. Padding, sentinels and scatter
-targets keep the JAX semantics exactly (ops/packing.py:scatter_drop).
+Every stage takes one block or a batch of blocks as rows (the JAX
+package's ``vmap``), each row decoded as it would be alone. Loops whose
+trip count the data decides (the resolution rounds) are Python loops that
+read one device scalar a round for the whole batch. Padding, sentinels and
+scatter targets keep the JAX semantics exactly
+(ops/packing.py:scatter_drop).
 """
 
 from __future__ import annotations
@@ -40,34 +43,40 @@ _MAX_TAIL_ROUNDS = 40  # chains deeper than 2^40 bytes cannot exist
 
 
 def _row_gather(operand: torch.Tensor, starts: torch.Tensor, width: int) -> torch.Tensor:
-    """Fixed-width rows at dynamic starts: (N,) starts -> (N, width).
+    """Fixed-width rows at dynamic starts: (N,) starts -> (N, width), or a
+    batch: (B, n) operand and (B, N) starts -> (B, N, width), each row of
+    starts into its own operand row.
 
     The JAX form reads the two aligned ``width`` rows covering the span
     (the second clamped to the last row) and selects the window; this is the
     same read as one indexed gather: starts are clamped into the operand,
     bytes past its end within the last row are zeros, and a window that runs
     past the last row wraps into that row again."""
-    n = operand.shape[0]
+    n = operand.shape[-1]
     rem = (-n) % width
     if rem:
-        operand = torch.cat([operand, operand.new_zeros(rem)])
-    nrows = operand.shape[0] // width
+        operand = torch.cat([operand, operand.new_zeros(*operand.shape[:-1], rem)], -1)
+    nrows = operand.shape[-1] // width
     st = starts.clamp(0, n - 1)
     q, sh = st // width, st % width
-    t = sh[:, None] + torch.arange(width, dtype=st.dtype, device=st.device)[None, :]
-    row = torch.where(t < width, q[:, None], (q[:, None] + 1).clamp(max=nrows - 1))
-    return operand[row * width + t % width]
+    t = sh[..., None] + torch.arange(width, dtype=st.dtype, device=st.device)
+    row = torch.where(t < width, q[..., None], (q[..., None] + 1).clamp(max=nrows - 1))
+    idx = row * width + t % width
+    if operand.dim() == 1:
+        return operand[idx]
+    return torch.gather(operand, -1, idx.reshape(idx.shape[0], -1).long()).reshape(idx.shape)
 
 
 def _cell_ranks(d: torch.Tensor, active: torch.Tensor):
     """Per-cell distinct-run ranking of source deltas.
 
-    d, active: (ncells, W). Equal deltas within a cell are contiguous runs
-    (fragments are intervals), so run starts mark distinct fragments. Returns
-    (rank, bnd): rank[c, l] is lane l's fragment index among the cell's
-    active fragments (valid where active), bnd the run-start flags."""
+    d, active: (..., ncells, W). Equal deltas within a cell are contiguous
+    runs (fragments are intervals), so run starts mark distinct fragments.
+    Returns (rank, bnd): rank[..., c, l] is lane l's fragment index among
+    the cell's active fragments (valid where active), bnd the run-start
+    flags."""
     prev_same = torch.zeros_like(active)
-    prev_same[:, 1:] = (d[:, 1:] == d[:, :-1]) & active[:, :-1]
+    prev_same[..., 1:] = (d[..., 1:] == d[..., :-1]) & active[..., :-1]
     bnd = active & ~prev_same
     # A log-step scan over the W lanes: torch.cumsum along short rows runs
     # one slow kernel (PERF.md).
@@ -76,8 +85,8 @@ def _cell_ranks(d: torch.Tensor, active: torch.Tensor):
 
 
 def _rank_value(d, bnd, rank, j):
-    """The shared delta of fragment-rank j per cell: (ncells,) int32."""
-    return torch.where(bnd & (rank == j), d, _INT_MIN).amax(dim=1)
+    """The shared delta of fragment-rank j per cell: (..., ncells) int32."""
+    return torch.where(bnd & (rank == j), d, _INT_MIN).amax(dim=-1)
 
 
 def build_source_map(
@@ -94,6 +103,9 @@ def build_source_map(
     prev_off=None,
 ):
     """Stage 1: the per-byte source map, self-overlap collapsed analytically.
+    The sequence tables are (nseq_pad,) with int or () ``dict_len`` and
+    ``total_out``, giving an (out_pad,) map, or a batch (B, nseq_pad) with
+    (B,) ones, giving (B, out_pad) maps.
 
     Encoding: s[p] >= 0 is unresolved, its source the *output* position s[p]
     (always < p); s[p] < 0 is resolved, its source the byte -(s[p]+1) of the
@@ -102,15 +114,20 @@ def build_source_map(
     ``prev_off``: the previous *real* sequence's match offset per sequence.
     Defaults to the flat shift, right for order-packed tables; lane-major
     (strided-parse) tables must supply it."""
+    if seq_oo.dim() == 1:
+        return build_source_map(
+            seq_oo[None], seq_ls[None], seq_ll[None], seq_mo[None], dict_len, total_out,
+            out_pad=out_pad, comp_pad=comp_pad, dict_bytes=dict_bytes,
+            prev_off=None if prev_off is None else prev_off[None])[0]
     dev = seq_oo.device
     pout = torch.arange(out_pad, dtype=torch.int32, device=dev)
     off_i = seq_mo.clamp(min=1)
     c_i = seq_ls - seq_oo
     if prev_off is None:
-        prev_off = torch.cat([off_i.new_zeros(1), off_i[:-1]])
+        prev_off = torch.cat([off_i.new_zeros(off_i.shape[0], 1), off_i[:, :-1]], 1)
     lit_starts = seq_oo  # padding seqs carry out_off == out_pad -> dropped
     match_starts = (seq_oo + seq_ll).clamp(0, out_pad)
-    zeros = torch.zeros(out_pad, dtype=torch.int32, device=dev)
+    zeros = torch.zeros((seq_oo.shape[0], out_pad), dtype=torch.int32, device=dev)
 
     V = packing.scatter_drop(zeros, lit_starts, c_i - prev_off, "add")
     V = packing.scatter_drop(V, match_starts, off_i - c_i, "add")
@@ -131,34 +148,45 @@ def build_source_map(
     # Self-overlap collapse: for rel < off this is just p - off; for
     # rel >= off it lands the RLE chain's true source, strictly before M.
     src = M - off + rel % off
-    dict_k = comp_pad + (dict_len + src).clamp(0, max(dict_bytes - 1, 0))
+    dict_k = comp_pad + (packing.per_row(dict_len) + src).clamp(0, max(dict_bytes - 1, 0))
     s = torch.where(is_lit, -(lit_k + 1), torch.where(src >= 0, src, -(dict_k + 1)))
     # Padding bytes: resolved with k = p so the padding region of every cell
     # shares one delta (d = 0) and cannot inflate fragment ranks.
-    return torch.where(pout < total_out, s, -(pout + 1))
+    return torch.where(pout < packing.per_row(total_out), s, -(pout + 1))
 
 
 def resolve_cells(s: torch.Tensor, *, out_pad, W=16, K=4, dense_rounds=3, tail_k=8):
-    """Stage 2: collapse match chains.
+    """Stage 2: collapse match chains, for one (out_pad,) map or a batch
+    (B, out_pad) of them.
 
     Doubling at cell granularity: ``dense_rounds`` rounds over every cell,
     then the surviving cells (a shrinking fraction) are compacted into a
     cell-index workset and chased there with the same row pull, whole cells
     written back with a row scatter. A dense per-byte loop remains as the
-    fallback for workset overflow (pathological inputs)."""
+    fallback for workset overflow (pathological inputs).
+
+    Each row takes the workset or the fallback as its own counts say (the
+    JAX package's ``lax.cond``, which ``vmap`` makes per row). The loops
+    run while any row is live and read one device scalar a round; a row
+    whose loop has ended is left as it stands, as a vmapped ``while_loop``
+    leaves it."""
+    if s.dim() == 1:
+        return resolve_cells(s[None], out_pad=out_pad, W=W, K=K, dense_rounds=dense_rounds,
+                             tail_k=tail_k)[0]
     dev = s.device
+    B = s.shape[0]
     ncells = out_pad // W
     lane = torch.arange(W, dtype=torch.int32, device=dev)
     cellstart = torch.arange(ncells, dtype=torch.int32, device=dev) * W
 
     def cell_round(sv, cs, sflat, k):
         """One doubling hop for the cells starting at byte offsets ``cs``:
-        sv (n, W) current values, sflat the full map. Lanes whose fragment
-        rank exceeds ``k`` wait a round."""
+        sv (B, n, W) current values, sflat the full maps. Lanes whose
+        fragment rank exceeds ``k`` wait a round."""
         un = sv >= 0
-        d = sv - (cs[:, None] + lane[None, :])
+        d = sv - (cs[..., None] + lane)
         rank, bnd = _cell_ranks(d, un)
-        sg = torch.cat([sflat.new_zeros(W), sflat])
+        sg = torch.cat([sflat.new_zeros(B, W), sflat], 1)
         new = sv
         for j in range(k):
             vj = _rank_value(d, bnd, rank, j)
@@ -168,68 +196,72 @@ def resolve_cells(s: torch.Tensor, *, out_pad, W=16, K=4, dense_rounds=3, tail_k
         return new
 
     for _ in range(dense_rounds):
-        s = cell_round(s.reshape(ncells, W), cellstart, s, K).reshape(-1)
+        s = cell_round(s.reshape(B, ncells, W), cellstart, s, K).reshape(B, out_pad)
 
-    # Compact surviving cells into a workset of cell indices.
+    # Compact each row's surviving cells into a workset of cell indices.
     ws = max(1024, ncells // 4)
-    active = (s.reshape(ncells, W) >= 0).any(dim=1)
-    cnt = int(active.sum())
+    active = (s.reshape(B, ncells, W) >= 0).any(dim=2)
+    cnt = active.sum(1)
     crank = packing.tiled_cumsum(active.to(torch.int32)) - 1
     cells_i = torch.arange(ncells, dtype=torch.int32, device=dev)
     # Sentinel entries point at cell 0 (resolved in any valid stream: the
     # first output byte is a literal); their write-back is a no-op.
     cidx = packing.scatter_drop(
-        torch.zeros(ws, dtype=torch.int32, device=dev), torch.where(active, crank, ws), cells_i)
+        torch.zeros((B, ws), dtype=torch.int32, device=dev), torch.where(active, crank, ws),
+        cells_i)
 
-    if cnt <= ws:
-        act, i = cnt > 0, 0
-        while act and i < _MAX_TAIL_ROUNDS:
-            sv = s.reshape(ncells, W)[cidx]
-            new = cell_round(sv, cidx * W, s, tail_k)
-            s2 = s.reshape(ncells, W).clone()
-            s2[cidx] = new
-            s = s2.reshape(-1)
-            act, i = bool((new >= 0).any()), i + 1
+    cells_w = cidx.long()[..., None].expand(-1, -1, W)  # the workset's cells, (B, ws, W)
+    live, i = (cnt > 0) & (cnt <= ws), 0
+    while i < _MAX_TAIL_ROUNDS and bool(live.any()):
+        sv = torch.gather(s.reshape(B, ncells, W), 1, cells_w)
+        new = torch.where(live[:, None, None], cell_round(sv, cidx * W, s, tail_k), sv)
+        s = s.reshape(B, ncells, W).scatter(1, cells_w, new).reshape(B, out_pad)
+        live, i = live & (new >= 0).flatten(1).any(1), i + 1
     # The fallback finishes anything left (workset overflow, or lanes that
     # kept waiting behind rank > tail_k in a pathological cell).
-    if bool((s >= 0).any()):
-        act, i = cnt > 0, 0
-        while act and i < _MAX_TAIL_ROUNDS:
-            g = s[s.clamp(0, out_pad - 1)]
-            s = torch.where(s >= 0, g, s)
-            act, i = bool((s >= 0).any()), i + 1
+    live, i = (s >= 0).any(1) & (cnt > 0), 0
+    while i < _MAX_TAIL_ROUNDS and bool(live.any()):
+        g = torch.gather(s, 1, s.clamp(0, out_pad - 1).long())
+        s = torch.where(live[:, None] & (s >= 0), g, s)
+        live, i = live & (s >= 0).any(1), i + 1
     return s
 
 
 def materialize_cells(s: torch.Tensor, words_g: torch.Tensor, *, out_pad, guard_words, W=16, K=8):
-    """Stage 3: the cell pull. ``words_g`` is the guarded concatenated
+    """Stage 3: the cell pull, for one resolved (out_pad,) map or a batch
+    (B, out_pad) of them. ``words_g`` is the guarded concatenated
     [zeros(guard) | compressed | dict | zeros(guard+8)] word buffer (int32
-    bit patterns); ``s`` must be fully resolved (all negative).
+    bit patterns), one a row; ``s`` must be fully resolved (all negative).
 
     The JAX form pulls 5-word rows and funnel-shifts each lane's byte out;
     here the rows are read from the buffer's bytes, at the byte the funnel
-    shift would pick, with the same clamps."""
+    shift would pick, with the same clamps. Tier 2 and the per-byte
+    fallback apply to the rows whose counts call for them."""
+    if s.dim() == 1:
+        return materialize_cells(s[None], words_g[None], out_pad=out_pad,
+                                 guard_words=guard_words, W=W, K=K)[0]
     dev = s.device
+    B = s.shape[0]
     ncells = out_pad // W
-    nwords = words_g.shape[0]
+    nwords = words_g.shape[1]
     wslice = W // 4 + 1
     bytes_g = packing.words_to_bytes(words_g)
     lane = torch.arange(W, dtype=torch.int32, device=dev)
     cellstart = torch.arange(ncells, dtype=torch.int32, device=dev) * W
-    pos = cellstart[:, None] + lane[None, :]
+    pos = cellstart[:, None] + lane
 
-    k = (-s - 1).reshape(ncells, W)
+    k = (-s - 1).reshape(B, ncells, W)
     d = k - pos
-    rank, bnd = _cell_ranks(d, torch.ones((ncells, W), dtype=torch.bool, device=dev))
+    rank, bnd = _cell_ranks(d, torch.ones((B, ncells, W), dtype=torch.bool, device=dev))
 
     def pull(j, d, bnd, rank, cs):
         vj = _rank_value(d, bnd, rank, j)
         b = cs + vj  # byte base of the source row (>= -(W-1))
         wb = ((b >> 2) + guard_words).clamp(0, nwords - wslice - 1)
         rows = _row_gather(bytes_g, wb * 4 + (b & 3), W)
-        return rows, rank == j  # (n, W) bytes, take mask
+        return rows, rank == j  # (B, n, W) bytes, take mask
 
-    out = torch.zeros((ncells, W), dtype=torch.uint8, device=dev)
+    out = torch.zeros((B, ncells, W), dtype=torch.uint8, device=dev)
     for j in range(K):
         bytes_j, take = pull(j, d, bnd, rank, cellstart)
         out = torch.where(take, bytes_j, out)
@@ -237,31 +269,33 @@ def materialize_cells(s: torch.Tensor, words_g: torch.Tensor, *, out_pad, guard_
     # Tier 2: cells whose fragment count exceeds K. A W-byte cell has at most
     # W fragments, so ranks K..W-1 are exhaustive. Compact those cells and
     # finish them with the same pull.
-    over = rank.amax(dim=1) >= K
+    over = rank.amax(dim=2) >= K
     ws = max(256, ncells // 8)
-    cnt = int(over.sum())
+    cnt = over.sum(1)
+    most = int(cnt.max())
     crank = packing.tiled_cumsum(over.to(torch.int32)) - 1
     cidx = packing.scatter_drop(
-        torch.zeros(ws, dtype=torch.int32, device=dev), torch.where(over, crank, ws),
+        torch.zeros((B, ws), dtype=torch.int32, device=dev), torch.where(over, crank, ws),
         torch.arange(ncells, dtype=torch.int32, device=dev))
 
-    if cnt > 0:
+    if most > 0:
         cs2 = cidx * W
-        d2 = _row_gather(d.reshape(-1), cs2, W)
-        r2 = _row_gather(rank.reshape(-1), cs2, W)
-        b2 = _row_gather(bnd.reshape(-1).to(torch.int32), cs2, W) > 0
-        vals = out.reshape(-1)
+        d2 = _row_gather(d.reshape(B, -1), cs2, W)
+        r2 = _row_gather(rank.reshape(B, -1), cs2, W)
+        b2 = _row_gather(bnd.reshape(B, -1).to(torch.int32), cs2, W) > 0
+        vals = out.reshape(B, -1)
         for j in range(K, W):
             bytes_j, take = pull(j, d2, b2, r2, cs2)
-            flat = torch.where(take, cs2[:, None] + lane[None, :], out_pad)
-            vals = packing.scatter_drop(vals, flat.reshape(-1), bytes_j.reshape(-1))
-        out = vals.reshape(ncells, W)
-    if cnt > ws:
-        # cnt > ws drops cells: every byte gathered on its own instead
-        # (never seen in practice).
+            flat = torch.where(take, cs2[..., None] + lane, out_pad)
+            vals = packing.scatter_drop(vals, flat.reshape(B, -1), bytes_j.reshape(B, -1))
+        out = torch.where((cnt > 0)[:, None, None], vals.reshape(B, ncells, W), out)
+    if most > ws:
+        # cnt > ws drops cells: every byte of such a row gathered on its own
+        # instead (never seen in practice).
         kk = (-s - 1) + guard_words * 4
-        out = bytes_g[(kk >> 2).clamp(0, nwords - 1) * 4 + (kk & 3)].reshape(ncells, W)
-    return out.reshape(-1)
+        one = torch.gather(bytes_g, 1, ((kk >> 2).clamp(0, nwords - 1) * 4 + (kk & 3)).long())
+        out = torch.where((cnt > ws)[:, None, None], one.reshape(B, ncells, W), out)
+    return out.reshape(B, out_pad)
 
 
 def expand2_core(
@@ -283,20 +317,22 @@ def expand2_core(
     mat_k: int = 8,
 ) -> torch.Tensor:
     """Drop-in replacement for ops.decode.expand_core (same signature and
-    output contract: (out_pad,) uint8) through the three stages above."""
-    comp_pad = comp_words.shape[0] * 4
-    dict_bytes = dict_words.shape[0] * 4 if has_dict else 0
+    output contract: (out_pad,) uint8, or (B, out_pad) for a batch of rows
+    with (B, ...) tensors and (B,) counts) through the three stages above."""
+    comp_pad = comp_words.shape[-1] * 4
+    dict_bytes = dict_words.shape[-1] * 4 if has_dict else 0
     s = build_source_map(
         seq_oo, seq_ls, seq_ll, seq_mo, dict_len, total_out,
         out_pad=out_pad, comp_pad=comp_pad, dict_bytes=dict_bytes,
     )
     s = resolve_cells(s, out_pad=out_pad, W=res_w, K=res_k, dense_rounds=dense_rounds)
     guard_words = mat_w // 4
-    parts = [comp_words.new_zeros(guard_words), comp_words]
+    lead = comp_words.shape[:-1]
+    parts = [comp_words.new_zeros(*lead, guard_words), comp_words]
     if has_dict:
         parts.append(dict_words)
     # Tail pad >= the gather width so clamping never shifts a valid read.
-    parts.append(comp_words.new_zeros(guard_words + 8))
+    parts.append(comp_words.new_zeros(*lead, guard_words + 8))
     return materialize_cells(
-        s, torch.cat(parts), out_pad=out_pad, guard_words=guard_words, W=mat_w, K=mat_k
+        s, torch.cat(parts, -1), out_pad=out_pad, guard_words=guard_words, W=mat_w, K=mat_k
     )

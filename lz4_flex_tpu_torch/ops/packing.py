@@ -36,17 +36,18 @@ def pad_to(arr: np.ndarray, size: int, fill: int = 0) -> np.ndarray:
 
 
 def bytes_to_words(u8: torch.Tensor) -> torch.Tensor:
-    """Pack a uint8 tensor (length divisible by 4) into little-endian words,
-    as int32 bit patterns."""
-    b = u8.reshape(-1, 4).to(torch.int64)
-    w = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    """Pack a uint8 tensor (last dim divisible by 4) into little-endian
+    words along its last dim, as int32 bit patterns."""
+    b = u8.reshape(*u8.shape[:-1], -1, 4).to(torch.int64)
+    w = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
     return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
 def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
-    """Unpack little-endian words (int32 bit patterns) into a uint8 tensor."""
+    """Unpack little-endian words (int32 bit patterns) into a uint8 tensor,
+    along the last dim."""
     b = torch.stack([(w >> s) & 0xFF for s in (0, 8, 16, 24)], dim=-1)
-    return b.reshape(-1).to(torch.uint8)
+    return b.reshape(*w.shape[:-1], -1).to(torch.uint8)
 
 
 def gather_bytes(words: torch.Tensor, byte_idx: torch.Tensor) -> torch.Tensor:
@@ -71,6 +72,12 @@ def gather_words_unaligned(words: torch.Tensor, byte_idx: torch.Tensor) -> torch
     # sh == 0 takes no bits of hi (a shift by 32 is masked out, as in JAX)
     w = (lo >> sh) | torch.where(sh == 0, 0, (hi << (32 - sh)) & 0xFFFFFFFF)
     return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def per_row(x):
+    """A per-row count (int, () or (B,) tensor) as (B, 1), to broadcast
+    against a batch's (B, n) rows; an int stays an int."""
+    return x.reshape(-1, 1) if isinstance(x, torch.Tensor) else x
 
 
 def doubling_scan(x: torch.Tensor, fn) -> torch.Tensor:
@@ -115,7 +122,8 @@ def tiled_cummax(x: torch.Tensor) -> torch.Tensor:
 
 
 def lsic_tables(u8: torch.Tensor):
-    """Vectorized LSIC (Linear Small-Integer Code) run decode.
+    """Vectorized LSIC (Linear Small-Integer Code) run decode, along the
+    last dim of ``u8`` (one payload, or a batch of rows).
 
     For every byte position q of ``u8`` (taken as the first byte of an LSIC
     extension run; lz4_flex reads these one byte at a time in read_integer,
@@ -129,38 +137,40 @@ def lsic_tables(u8: torch.Tensor):
     is not 0xFF. A run that reaches the end reads the last byte as its
     terminator, so callers pad the payload with at least one zero byte.
     """
-    n = u8.shape[0]
+    n = u8.shape[-1]
     pos = torch.arange(n, dtype=torch.int32, device=u8.device)
     cand = torch.where(u8 != 0xFF, pos, n - 1)
     nz_next = tiled_scan("min", cand, reverse=True)
     run = nz_next - pos
-    value = run * 255 + u8[nz_next].to(torch.int32)
+    value = run * 255 + torch.gather(u8, -1, nz_next.long()).to(torch.int32)
     return value, run + 1
 
 
 def scatter_drop(base: torch.Tensor, idx: torch.Tensor, vals, op: str = "set") -> torch.Tensor:
-    """``base.at[idx].<op>(vals, mode="drop")`` of the JAX package for a 1-D
-    ``base`` and op "set", "add" or "max"; returns a new tensor. ``vals`` is
-    a tensor shaped like ``idx`` or a number. Duplicate targets of "set"
-    must carry equal values (the scatter order is not fixed on CUDA).
+    """``base.at[idx].<op>(vals, mode="drop")`` of the JAX package along the
+    last dim, for op "set", "add" or "max"; returns a new tensor. ``base``
+    is (n,) or a batch (B, n) whose row b takes the targets of ``idx``'s
+    row b; ``vals`` is a tensor that broadcasts to ``idx`` or a number.
+    Duplicate targets of "set" must carry equal values (the scatter order
+    is not fixed on CUDA).
 
     As in JAX, a negative index counts from the end, and whatever then lies
-    outside [0, n) is dropped: it goes to a sink slot n of a buffer one
-    longer, which is sliced off. Never a clamp: that would write into a
-    real position."""
-    n = base.shape[0]
-    out = torch.cat([base, base.new_zeros(1)])
+    outside [0, n) is dropped: it goes to a sink slot n of each row, one
+    longer than ``base``'s, which is sliced off. Never a clamp: that would
+    write into a real position, and no row writes into another."""
+    n = base.shape[-1]
+    out = torch.cat([base, base.new_zeros(*base.shape[:-1], 1)], -1)
     idx = torch.where(idx < 0, idx + n, idx)
     tgt = torch.where((idx >= 0) & (idx < n), idx, n).long()
     if not isinstance(vals, torch.Tensor):
         vals = torch.full(idx.shape, vals, dtype=base.dtype, device=base.device)
-    vals = vals.to(base.dtype)
+    vals = vals.to(base.dtype).expand(idx.shape)
     if op == "add":
-        out.index_add_(0, tgt, vals)
+        out.scatter_add_(-1, tgt, vals)
     elif op == "max":
-        out.scatter_reduce_(0, tgt, vals, reduce="amax")
+        out.scatter_reduce_(-1, tgt, vals, reduce="amax")
     elif op == "set":
-        out[tgt] = vals
+        out.scatter_(-1, tgt, vals)
     else:
         raise ValueError(f"unknown scatter op {op!r}")
-    return out[:n]
+    return out[..., :n]

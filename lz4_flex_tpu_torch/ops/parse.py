@@ -22,7 +22,9 @@ Three engines: ``parse_core`` (doubling, the default), ``parse_walk_core``
 segments in lockstep). The walks' loops, whose trip count the data
 decides, are Python loops over masked steps that read one device scalar
 every ``_CHECK_EVERY`` steps; the doubling engine's round count follows
-from the shape and reads none.
+from the shape and reads none. ``parse_rows`` is the doubling engine over
+a batch of payload rows (the JAX package's ``vmap`` of ``parse_core``);
+``parse_core`` is its one-row view.
 """
 
 from __future__ import annotations
@@ -41,19 +43,21 @@ _CHECK_EVERY = 32
 
 
 def _speculative_tables(u8: torch.Tensor, n):
-    """Decode a sequence header at EVERY byte position (vectorized).
+    """Decode a sequence header at EVERY byte position (vectorized), along
+    the last dim: ``u8`` is one payload (pad,) with its length ``n``, or a
+    batch (B, pad) with (B, 1) lengths.
 
     Returns per-position int32/bool tensors: (nxt, lit_start, lit_len,
     offset, match_len, out_inc, is_final, flag_lit_oob, flag_truncated,
     flag_offset_zero, flag_terminated). Flags describe what holds IF a real
     sequence starts at that position."""
-    pad = u8.shape[0]
+    pad = u8.shape[-1]
     pos = torch.arange(pad, dtype=torch.int32, device=u8.device)
     u = u8.to(torch.int32)
     lsic_val, lsic_nb = packing.lsic_tables(u8)
 
     def at(arr, idx):
-        return arr[idx.clamp(0, pad - 1)]
+        return torch.gather(arr, -1, idx.clamp(0, pad - 1).long().expand(arr.shape))
 
     lln = u >> 4
     mln = u & 15
@@ -96,62 +100,74 @@ def _flag_bits(f_lit_oob, f_truncated, f_offset_zero, f_terminated, is_final):
             | (is_final.to(torch.int32) << 4))
 
 
-def parse_core(u8: torch.Tensor, n, *, nseq_pad: int):
-    """The speculative parse by pointer-doubling reachability. ``u8`` is the
-    payload padded with at least one zero byte, ``n`` its length (int or ()
-    tensor). Returns (lit_start, lit_len, match_off, match_len, out_off,
-    nseq, total_out, error_flags): nseq_pad-padded int32 sequence tensors,
-    () int32 counts and (3,) bool flags [literal_oob, truncated,
-    offset_zero]."""
-    pad = u8.shape[0]
+def row_lengths(n, rows: int, device) -> torch.Tensor:
+    """A length (int or () tensor) or a batch of them as a (rows,) int32
+    tensor on ``device``."""
+    if isinstance(n, torch.Tensor):
+        return n.to(device=device, dtype=torch.int32).reshape(rows)
+    return torch.full((rows,), n, dtype=torch.int32, device=device)
+
+
+def parse_rows(u8: torch.Tensor, n: torch.Tensor, *, nseq_pad: int):
+    """The speculative parse by pointer-doubling reachability over a batch:
+    ``u8`` (B, pad) payload rows, each padded with at least one zero byte,
+    ``n`` their (B,) int32 lengths. Returns (lit_start, lit_len, match_off,
+    match_len, out_off, nseq, total_out, error_flags): (B, nseq_pad) int32
+    sequence tables, (B,) int32 counts and (B, 3) bool flags [literal_oob,
+    truncated, offset_zero]. Row b's results are those of ``parse_core`` on
+    row b alone: every index stays inside its own row."""
+    B, pad = u8.shape
     dev = u8.device
     pos = torch.arange(pad, dtype=torch.int32, device=dev)
+    nb = n[:, None]
     (
         nxt, lit_start, ll, offset, ml, out_inc,
         is_final, f_lit_oob, f_truncated, f_offset_zero, f_terminated,
-    ) = _speculative_tables(u8, n)
+    ) = _speculative_tables(u8, nb)
 
     # --- chain reachability by pointer doubling ---------------------------
-    # Slot `pad` is the terminal sentinel; position n (the end of the stream)
-    # maps into the pad region whose successor is the sentinel.
+    # Slot `pad` of each row is its terminal sentinel; position n (the end
+    # of the stream) maps into the pad region whose successor is the
+    # sentinel. Successors are clamped into the row, so the doubling's
+    # gathers and stores along dim 1 never leave it.
     sent = pad
-    J = torch.where(pos < n, nxt.clamp(0, sent), sent)
-    J = torch.cat([J, J.new_full((1,), sent)]).long()
-    M = torch.zeros(pad + 2, dtype=torch.int32, device=dev)  # slot pad+1: a sink
-    M[0] = 1
+    J = torch.where(pos < nb, nxt.clamp(0, sent), sent)
+    J = torch.cat([J, J.new_full((B, 1), sent)], 1).long()
+    M = torch.zeros((B, pad + 2), dtype=torch.int32, device=dev)  # slot pad+1: a sink
+    M[:, 0] = 1
     for _ in range(max(1, (pad + 1).bit_length())):
         # M.at[J].max(M) of the JAX package: M is 0/1, so it sets 1 at J[i]
         # wherever M[i] is 1, as plain stores of one value (an atomic max
         # contends on the sentinel slot that most walks reach).
-        tgt = torch.where(M[: pad + 1] == 1, J, pad + 1)
-        M = M.clone()
-        M[tgt] = 1
-        M[pad + 1] = 0
-        J = J[J]
-    on_chain = (M[:pad] == 1) & (pos < n)
+        tgt = torch.where(M[:, : pad + 1] == 1, J, pad + 1)
+        M.scatter_(1, tgt, 1)
+        M[:, pad + 1] = 0
+        J = torch.gather(J, 1, J)
+    on_chain = (M[:, :pad] == 1) & (pos < nb)
 
     # --- output offsets: masked exclusive prefix sum ----------------------
     inc = torch.where(on_chain, out_inc, 0)
     cum = packing.tiled_cumsum(inc)
     out_off = cum - inc
-    total_out = cum[pad - 1]
+    total_out = cum[:, pad - 1]
 
     # --- error taxonomy (only chain positions count) ----------------------
     # "Never terminated" counts as truncation only when no specific error
     # explains it (error-type parity with the host parser).
-    err_lit_oob = (on_chain & f_lit_oob).any()
-    terminated = (on_chain & f_terminated).any()
-    err_offset_zero = (on_chain & f_offset_zero).any()
-    err_truncated = (on_chain & f_truncated).any() | (~terminated & ~err_lit_oob & ~err_offset_zero)
+    err_lit_oob = (on_chain & f_lit_oob).any(1)
+    terminated = (on_chain & f_terminated).any(1)
+    err_offset_zero = (on_chain & f_offset_zero).any(1)
+    err_truncated = ((on_chain & f_truncated).any(1)
+                     | (~terminated & ~err_lit_oob & ~err_offset_zero))
 
     # --- compaction to a fixed-width sequence table -----------------------
     rank = packing.tiled_cumsum(on_chain.to(torch.int32)) - 1
-    nseq = rank[pad - 1] + 1
+    nseq = rank[:, pad - 1] + 1
     tgt = torch.where(on_chain, rank, nseq_pad)  # dropped when not on chain
 
     def compact(field, fill):
         return packing.scatter_drop(
-            torch.full((nseq_pad,), fill, dtype=torch.int32, device=dev), tgt, field)
+            torch.full((B, nseq_pad), fill, dtype=torch.int32, device=dev), tgt, field)
 
     return (
         compact(lit_start, 0),
@@ -161,8 +177,19 @@ def parse_core(u8: torch.Tensor, n, *, nseq_pad: int):
         compact(out_off, 0),
         nseq,
         total_out,
-        torch.stack([err_lit_oob, err_truncated, err_offset_zero]),
+        torch.stack([err_lit_oob, err_truncated, err_offset_zero], 1),
     )
+
+
+def parse_core(u8: torch.Tensor, n, *, nseq_pad: int):
+    """The speculative parse of one payload: :func:`parse_rows` on a batch
+    of one. ``u8`` is the payload padded with at least one zero byte, ``n``
+    its length (int or () tensor). Returns (lit_start, lit_len, match_off,
+    match_len, out_off, nseq, total_out, error_flags): nseq_pad-padded int32
+    sequence tensors, () int32 counts and (3,) bool flags [literal_oob,
+    truncated, offset_zero]."""
+    out = parse_rows(u8[None], row_lengths(n, 1, u8.device), nseq_pad=nseq_pad)
+    return tuple(t[0] for t in out)
 
 
 def parse_walk_core(u8: torch.Tensor, n, *, nseq_pad: int):

@@ -36,9 +36,11 @@ overflows its static shape the resident decoder takes the frame
 (``_decode_blocks_sharded_resident``).
 
 The batched device-resident decode ``_decode_batch`` (under
-``LZ4Codec.decode_step`` and ``roundtrip_step_sharded``) is the JAX
-package's ``_decode_batch``: its ``vmap`` over rows becomes rows decoded one
-after another, since the engines' loops end where each row's data says.
+``LZ4Codec.decode_step``, ``roundtrip_step_sharded`` and the overflow
+decode) is the JAX package's ``_decode_batch``: its ``vmap`` over rows is
+one batched program over the rows (``ops.decode.decode_resident_rows``),
+whose loops run while any row's data says and leave a finished row as it
+stands.
 """
 
 from __future__ import annotations
@@ -68,6 +70,13 @@ from .mesh import (
 # uploads, encodes and reads back one such group at a time, so a frame's
 # device memory is bounded by this constant, not by its input.
 _ENCODE_ROWS = 32
+
+# Positions per resident-decode dispatch (``_decode_batch``): rows times the
+# larger of their payload width and output size. A dispatch's temporaries
+# scale with its positions, so a batch past this is decoded in groups of
+# rows, in order (256 rows of 64 KiB blocks, 4 of 4 MiB); the bytes do not
+# depend on the split.
+_DECODE_POSITIONS = 1 << 24
 
 
 def fetch_global(x, *, force_replicate: bool = False) -> np.ndarray:
@@ -345,27 +354,23 @@ def _decode_batch(rows, clen, *, out_pad, nseq_pad, capacity=None):
     """Decode independent blocks on ``rows``' device: (B, C) uint8 payload
     rows, each padded with at least one zero byte, and their (B,) lengths ->
     ((B, out_pad) uint8 outputs, (B,) int32 lengths, (B, 5) bool error
-    flags), each row by ``ops.decode.decode_resident_core``; ``capacity``
-    (default ``out_pad``) is the output size past which a row flags
+    flags), the JAX package's ``vmap`` of the resident decode as one batched
+    program (``ops.decode.decode_resident_rows``) a group of rows, groups of
+    at most ``_DECODE_POSITIONS`` positions in order; ``capacity`` (default
+    ``out_pad``) is the output size past which a row flags
     output_too_small."""
-    from ..ops.decode import decode_resident_core
-    from ..ops.parse import default_parse_engine
+    from ..ops.decode import decode_resident_rows
 
-    outs, totals, errs = [], [], []
-    for row, n in zip(rows, clen):
-        out, total, err = decode_resident_core(
-            row, n, out_pad=out_pad, nseq_pad=nseq_pad,
-            parse_engine=default_parse_engine(), capacity=capacity,
-        )
-        outs.append(out)
-        totals.append(total)
-        errs.append(err)
-    if not outs:
+    if rows.shape[0] == 0:
         dev = rows.device
         return (torch.zeros((0, out_pad), dtype=torch.uint8, device=dev),
                 torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros((0, 5), dtype=torch.bool, device=dev))
-    return torch.stack(outs), torch.stack(totals), torch.stack(errs)
+    per = max(1, _DECODE_POSITIONS // max(out_pad, rows.shape[1]))
+    parts = [decode_resident_rows(rows[i : i + per], clen[i : i + per], out_pad=out_pad,
+                                  nseq_pad=nseq_pad, capacity=capacity)
+             for i in range(0, rows.shape[0], per)]
+    return parts[0] if len(parts) == 1 else tuple(torch.cat(t) for t in zip(*parts))
 
 
 def roundtrip_step_sharded(data, block_size: int, *, mesh=None):
@@ -379,8 +384,7 @@ def roundtrip_step_sharded(data, block_size: int, *, mesh=None):
     assembly_offsets (B,) int32, ok () bool), on the mesh's first entry.
     Across processes each encodes and decodes its own entries' rows, and
     the rows, lengths and flags are gathered, so every rank returns the
-    global result. The decode is host-bound: ``_decode_batch`` decodes rows
-    one after another."""
+    global result."""
     mesh = codec_mesh(mesh)
     layout = mesh_layout(mesh)
     rows, dlen, tlen, _, per = _stage_own_rows(data, block_size, linked=False, start=0,

@@ -413,6 +413,42 @@ def test_fallback_entry_points_on_card(card, monkeypatch):
     assert R.stats["kernel_launches"] == before["kernel_launches"]
 
 
+def _device_events(fn) -> int:
+    """The device events (kernels and copies) of one call of ``fn`` under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
+def test_decode_step_is_one_batched_program(card):
+    """decode_step on 32 blocks of 64 KiB (one malformed) equals its CPU run
+    bit for bit, and its device events do not grow with the batch: B=32
+    within 1.5x of B=1."""
+    soup = word_soup(32 * 65536, seed=38)
+    blocks = [soup[i : i + 65536] for i in range(0, len(soup), 65536)]
+    comps = [native.compress_block(b) for b in blocks]
+    comps[5] = bytes([0x12, 0x41, 0x00, 0x00])  # offset zero: flagged, neighbours unchanged
+    width = packing.size_bucket(max(len(c) for c in comps) + 1)
+    rows = np.zeros((len(comps), width), np.uint8)
+    for i, c in enumerate(comps):
+        rows[i, : len(c)] = np.frombuffer(c, np.uint8)
+    lens = np.array([len(c) for c in comps], np.int32)
+    got = LZ4Codec(device=card).decode_step(rows, lens)
+    _same(got, LZ4Codec(device="cpu").decode_step(rows, lens))
+    out, total, errs = got
+    assert errs[5].tolist() == [False, False, True, False, False]
+    for i, b in enumerate(blocks):
+        if i != 5:
+            assert out[i, : int(total[i])].cpu().numpy().tobytes() == b and not bool(errs[i].any())
+    codec = LZ4Codec(device=card)
+    events = {b: _device_events(lambda: codec.decode_step(rows[:b], lens[:b])) for b in (1, 8, 32)}
+    assert events[32] <= 1.5 * events[1], events
+
+
 def _plan_arrays(plan):
     """A plan's (nf_tot, init, f0, f1, f2), copied out of the planner's pool."""
     return tuple(a.copy() for a in (plan.nf_tot, plan.lit_init, plan.rec_f0, plan.rec_f1,

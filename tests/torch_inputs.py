@@ -40,6 +40,21 @@ def deep_chains(n: int, tail: int = 1024, reps: int = 3) -> bytes:
     return data[:n]
 
 
+def mutated_copies(n: int, period: int = 256, seed: int = 11) -> bytes:
+    """Copies of a random ``period``-byte block, each the one before it with
+    one byte changed: every copy's matches reach into the copy before, so
+    match chains run as deep as the copies (none self-overlaps, so no
+    analytic collapse shortens them)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, period, dtype=np.uint8)
+    out = [x]
+    while len(out) * period < n:
+        x = x.copy()
+        x[rng.integers(0, period)] = rng.integers(0, 256)
+        out.append(x)
+    return np.concatenate(out)[:n].tobytes()
+
+
 def periodic_ring_boundary() -> bytes:
     """Periodic matches of several periods around the 32 KiB tile edges."""
     rng = np.random.default_rng(13)
