@@ -37,6 +37,7 @@ from ..spec.constants import (
     MAGIC_NUMBER_SIZE,
     MIN_FRAME_INFO_SIZE,
 )
+from ..utils import trace
 from ..utils.checksum import xxh32
 from . import errors
 from .header import BlockInfo, BlockInfoKind, BlockMode, FrameInfo
@@ -65,15 +66,16 @@ def compress_frame_device(data, frame_info: FrameInfo | None = None, *, mesh=Non
     verify walk and re-encodes a mismatching block on the host."""
     from .encoder import FrameEncoder
 
-    data = bytes(data)
-    fi = frame_info if frame_info is not None else FrameInfo()
-    buf = io.BytesIO()
-    enc = FrameEncoder(buf, fi, engine="device", mesh=mesh, device=device, verify=verify)
-    if fi.content_size is not None and fi.content_size != len(data):
-        raise errors.ContentLengthError(fi.content_size, len(data))
-    enc.write(data)
-    enc.finish()
-    return buf.getvalue()
+    with trace.span("frame.encode"):
+        data = bytes(data)
+        fi = frame_info if frame_info is not None else FrameInfo()
+        buf = io.BytesIO()
+        enc = FrameEncoder(buf, fi, engine="device", mesh=mesh, device=device, verify=verify)
+        if fi.content_size is not None and fi.content_size != len(data):
+            raise errors.ContentLengthError(fi.content_size, len(data))
+        enc.write(data)
+        enc.finish()
+        return buf.getvalue()
 
 
 def decompress_frame_device(data, *, mesh=None, device=None) -> bytes:
@@ -93,97 +95,98 @@ def decompress_frame_device(data, *, mesh=None, device=None) -> bytes:
         dev = mesh[0]
     else:
         dev = resolve_device(device)
-    data = bytes(data)
-    pos = 0
-    chunks = []
-    while pos < len(data):
-        # ---- header -------------------------------------------------------
-        head = data[pos : pos + MIN_FRAME_INFO_SIZE]
-        if len(head) < MAGIC_NUMBER_SIZE:
-            raise errors.FrameError("truncated frame header")
-        required = FrameInfo.read_size(head)
-        head = data[pos : pos + required]
-        if len(head) < required:
-            raise errors.FrameError("truncated frame header")
-        try:
-            fi = FrameInfo.read(head)
-        except errors.SkippableFrame as sf:
-            pos += MAGIC_NUMBER_SIZE + 4 + sf.size
-            continue
-        if fi.dict_id is not None:
-            raise errors.DictionaryNotSupported()
-        pos += required
-        max_block_size = fi.block_size.get_size()
-
-        # ---- block walk ---------------------------------------------------
-        parts = []
-        while True:
-            if fi.legacy_frame:
-                if pos + 4 > len(data):
-                    break  # legacy frames end at EOF / next magic
-                (word,) = struct.unpack_from("<I", data, pos)
-                if _is_any_magic(word):
-                    break
-                pos += 4
-                if word > 16 + 4 + (8 * 1024 * 1024 * 110) // 100:
-                    raise errors.BlockTooBig()
-                payload = data[pos : pos + word]
-                if len(payload) < word:
-                    raise errors.FrameError("truncated block")
-                pos += word
-                parts.append((payload, True))
+    with trace.span("frame.decode"):
+        data = bytes(data)
+        pos = 0
+        chunks = []
+        while pos < len(data):
+            # ---- header -------------------------------------------------------
+            head = data[pos : pos + MIN_FRAME_INFO_SIZE]
+            if len(head) < MAGIC_NUMBER_SIZE:
+                raise errors.FrameError("truncated frame header")
+            required = FrameInfo.read_size(head)
+            head = data[pos : pos + required]
+            if len(head) < required:
+                raise errors.FrameError("truncated frame header")
+            try:
+                fi = FrameInfo.read(head)
+            except errors.SkippableFrame as sf:
+                pos += MAGIC_NUMBER_SIZE + 4 + sf.size
                 continue
-            if pos + 4 > len(data):
-                raise errors.FrameError("truncated block info")
-            info = BlockInfo.read(data[pos : pos + 4])
-            pos += 4
-            if info.kind is BlockInfoKind.EndMark:
-                break
-            if info.size > max_block_size:
-                raise errors.BlockTooBig()
-            payload = data[pos : pos + info.size]
-            if len(payload) < info.size:
-                raise errors.FrameError("truncated block payload")
-            pos += info.size
-            if fi.block_checksums:
+            if fi.dict_id is not None:
+                raise errors.DictionaryNotSupported()
+            pos += required
+            max_block_size = fi.block_size.get_size()
+
+            # ---- block walk ---------------------------------------------------
+            parts = []
+            while True:
+                if fi.legacy_frame:
+                    if pos + 4 > len(data):
+                        break  # legacy frames end at EOF / next magic
+                    (word,) = struct.unpack_from("<I", data, pos)
+                    if _is_any_magic(word):
+                        break
+                    pos += 4
+                    if word > 16 + 4 + (8 * 1024 * 1024 * 110) // 100:
+                        raise errors.BlockTooBig()
+                    payload = data[pos : pos + word]
+                    if len(payload) < word:
+                        raise errors.FrameError("truncated block")
+                    pos += word
+                    parts.append((payload, True))
+                    continue
                 if pos + 4 > len(data):
-                    raise errors.FrameError("truncated block checksum")
-                (expected,) = struct.unpack_from("<I", data, pos)
+                    raise errors.FrameError("truncated block info")
+                info = BlockInfo.read(data[pos : pos + 4])
                 pos += 4
-                if xxh32(payload, 0) != expected:
-                    raise errors.BlockChecksumError()
-            parts.append((payload, info.kind is BlockInfoKind.Compressed))
+                if info.kind is BlockInfoKind.EndMark:
+                    break
+                if info.size > max_block_size:
+                    raise errors.BlockTooBig()
+                payload = data[pos : pos + info.size]
+                if len(payload) < info.size:
+                    raise errors.FrameError("truncated block payload")
+                pos += info.size
+                if fi.block_checksums:
+                    if pos + 4 > len(data):
+                        raise errors.FrameError("truncated block checksum")
+                    (expected,) = struct.unpack_from("<I", data, pos)
+                    pos += 4
+                    if xxh32(payload, 0) != expected:
+                        raise errors.BlockChecksumError()
+                parts.append((payload, info.kind is BlockInfoKind.Compressed))
 
-        # ---- device decode ------------------------------------------------
-        independent = fi.legacy_frame or fi.block_mode == BlockMode.Independent
-        try:
-            if (mesh is not None and not fi.legacy_frame and fi.block_mode == BlockMode.Independent
-                    and len(parts) > 1 and all(is_comp for _, is_comp in parts)):
-                from ..parallel.pipeline import decode_blocks_sharded
+            # ---- device decode ------------------------------------------------
+            independent = fi.legacy_frame or fi.block_mode == BlockMode.Independent
+            try:
+                if (mesh is not None and not fi.legacy_frame and fi.block_mode == BlockMode.Independent
+                        and len(parts) > 1 and all(is_comp for _, is_comp in parts)):
+                    from ..parallel.pipeline import decode_blocks_sharded
 
-                out = b"".join(decode_blocks_sharded([p for p, _ in parts], max_block_size,
-                                                     mesh=mesh))
-            else:
-                out = decode_parts_ring(
-                    parts, independent=independent, max_block_size=max_block_size, device=dev
-                )
-            if out is None:
-                stats["overflow_fused_decodes"] += 1
-                out = decode_parts_fused(
-                    parts, independent=independent, max_block_size=max_block_size, device=dev
-                )
-        except DecompressError as e:
-            raise errors.DecompressionError(e) from e
+                    out = b"".join(decode_blocks_sharded([p for p, _ in parts], max_block_size,
+                                                         mesh=mesh))
+                else:
+                    out = decode_parts_ring(
+                        parts, independent=independent, max_block_size=max_block_size, device=dev
+                    )
+                if out is None:
+                    stats["overflow_fused_decodes"] += 1
+                    out = decode_parts_fused(
+                        parts, independent=independent, max_block_size=max_block_size, device=dev
+                    )
+            except DecompressError as e:
+                raise errors.DecompressionError(e) from e
 
-        if not fi.legacy_frame:
-            if fi.content_size is not None and len(out) != fi.content_size:
-                raise errors.ContentLengthError(fi.content_size, len(out))
-            if fi.content_checksum:
-                if pos + 4 > len(data):
-                    raise errors.FrameError("truncated content checksum")
-                (expected,) = struct.unpack_from("<I", data, pos)
-                pos += 4
-                if xxh32(out, 0) != expected:
-                    raise errors.ContentChecksumError()
-        chunks.append(out)
-    return b"".join(chunks)
+            if not fi.legacy_frame:
+                if fi.content_size is not None and len(out) != fi.content_size:
+                    raise errors.ContentLengthError(fi.content_size, len(out))
+                if fi.content_checksum:
+                    if pos + 4 > len(data):
+                        raise errors.FrameError("truncated content checksum")
+                    (expected,) = struct.unpack_from("<I", data, pos)
+                    pos += 4
+                    if xxh32(out, 0) != expected:
+                        raise errors.ContentChecksumError()
+            chunks.append(out)
+        return b"".join(chunks)

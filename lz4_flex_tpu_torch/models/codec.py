@@ -16,6 +16,7 @@ from dataclasses import dataclass
 
 from ..frame.header import BlockMode, BlockSize, FrameInfo
 from ..ops import packing
+from ..utils import trace
 
 
 @dataclass
@@ -54,14 +55,16 @@ class LZ4Codec:
         hybrid encoder)."""
         from ..frame.device import compress_frame_device
 
-        return compress_frame_device(data, self.config.frame_info(), mesh=self.mesh,
-                                     device=self.device, verify=self.config.verify)
+        with trace.request("codec.compress"):
+            return compress_frame_device(data, self.config.frame_info(), mesh=self.mesh,
+                                         device=self.device, verify=self.config.verify)
 
     def decompress(self, data) -> bytes:
         """Decompress every concatenated LZ4 frame in ``data``."""
         from ..frame.device import decompress_frame_device
 
-        return decompress_frame_device(data, mesh=self.mesh, device=self.device)
+        with trace.request("codec.decompress"):
+            return decompress_frame_device(data, mesh=self.mesh, device=self.device)
 
     def compress_block(self, data, ext_dict=b"") -> bytes:
         """Compress one raw LZ4 block with the all-device encoder."""
@@ -111,10 +114,11 @@ class LZ4Codec:
         from ..ops.ringdecode import resolve_device
         from ..parallel.pipeline import _decode_batch
 
-        dev = resolve_device(self.device)
-        rows = torch.as_tensor(comp_bytes, dtype=torch.uint8).to(dev)
-        lens = torch.as_tensor(comp_lens, dtype=torch.int32).to(dev)
-        width = rows.shape[1]
-        out_pad = packing.size_bucket(self.config.block_size.get_size())
-        nseq_pad = packing.size_bucket(max(8, width // 3 + 2), minimum=256)
-        return _decode_batch(rows, lens, out_pad=out_pad, nseq_pad=nseq_pad)
+        with trace.request("codec.decode_step"):
+            dev = resolve_device(self.device)
+            rows = torch.as_tensor(comp_bytes, dtype=torch.uint8).to(dev)
+            lens = torch.as_tensor(comp_lens, dtype=torch.int32).to(dev)
+            width = rows.shape[1]
+            out_pad = packing.size_bucket(self.config.block_size.get_size())
+            nseq_pad = packing.size_bucket(max(8, width // 3 + 2), minimum=256)
+            return _decode_batch(rows, lens, out_pad=out_pad, nseq_pad=nseq_pad)

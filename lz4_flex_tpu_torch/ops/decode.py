@@ -124,14 +124,14 @@ def expand_core(
 
     started = mask.any(1)
     live, i = started & (cnt <= un_pad), 0
-    while i < _MAX_DOUBLING_ROUNDS and bool(live.any()):
+    while i < _MAX_DOUBLING_ROUNDS and packing.host_read(bool, live.any()):
         su = torch.gather(s, 1, uidx)
         g = torch.gather(s, 1, su.clamp(0, out_pad - 1).long())
         new = torch.where(live[:, None] & (su >= 0), g, su)
         s = s.scatter(1, uidx, new)
         live, i = live & (new >= 0).any(1), i + 1
     live, i = started & (cnt > un_pad), 0
-    while i < _MAX_DOUBLING_ROUNDS and bool(live.any()):
+    while i < _MAX_DOUBLING_ROUNDS and packing.host_read(bool, live.any()):
         s = torch.where(live[:, None], dense_round(s), s)
         live, i = live & (s >= 0).any(1), i + 1
 

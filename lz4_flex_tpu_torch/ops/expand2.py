@@ -212,7 +212,7 @@ def resolve_cells(s: torch.Tensor, *, out_pad, W=16, K=4, dense_rounds=3, tail_k
 
     cells_w = cidx.long()[..., None].expand(-1, -1, W)  # the workset's cells, (B, ws, W)
     live, i = (cnt > 0) & (cnt <= ws), 0
-    while i < _MAX_TAIL_ROUNDS and bool(live.any()):
+    while i < _MAX_TAIL_ROUNDS and packing.host_read(bool, live.any()):
         sv = torch.gather(s.reshape(B, ncells, W), 1, cells_w)
         new = torch.where(live[:, None, None], cell_round(sv, cidx * W, s, tail_k), sv)
         s = s.reshape(B, ncells, W).scatter(1, cells_w, new).reshape(B, out_pad)
@@ -220,7 +220,7 @@ def resolve_cells(s: torch.Tensor, *, out_pad, W=16, K=4, dense_rounds=3, tail_k
     # The fallback finishes anything left (workset overflow, or lanes that
     # kept waiting behind rank > tail_k in a pathological cell).
     live, i = (s >= 0).any(1) & (cnt > 0), 0
-    while i < _MAX_TAIL_ROUNDS and bool(live.any()):
+    while i < _MAX_TAIL_ROUNDS and packing.host_read(bool, live.any()):
         g = torch.gather(s, 1, s.clamp(0, out_pad - 1).long())
         s = torch.where(live[:, None] & (s >= 0), g, s)
         live, i = live & (s >= 0).any(1), i + 1
@@ -272,7 +272,7 @@ def materialize_cells(s: torch.Tensor, words_g: torch.Tensor, *, out_pad, guard_
     over = rank.amax(dim=2) >= K
     ws = max(256, ncells // 8)
     cnt = over.sum(1)
-    most = int(cnt.max())
+    most = packing.host_read(int, cnt.max())
     crank = packing.tiled_cumsum(over.to(torch.int32)) - 1
     cidx = packing.scatter_drop(
         torch.zeros((B, ws), dtype=torch.int32, device=dev), torch.where(over, crank, ws),

@@ -11,9 +11,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 # Shape buckets: pad array lengths to the next bucket so that the number of
 # distinct shapes, and the plans of buffers of each, stay small.
 _BUCKET_MIN = 4096
+
+
+def host_read(cast, t: torch.Tensor):
+    """``cast(t)`` (``bool`` or ``int``) of a device tensor, which waits for
+    the device: every read of a loop's state in the resident decode's
+    programs goes through here, in the span ``resident.sync``."""
+    with trace.span("resident.sync"):
+        return cast(t)
 
 
 def size_bucket(n: int, minimum: int = _BUCKET_MIN) -> int:

@@ -219,7 +219,7 @@ def parse_walk_core(u8: torch.Tensor, n, *, nseq_pad: int):
     st = torch.zeros(5, dtype=torch.int32, device=dev)
     step = 0
     while True:
-        if step % _CHECK_EVERY == 0 and not bool((st[2] < nseq_pad) & (st[0] < n_t)):
+        if step % _CHECK_EVERY == 0 and not packing.host_read(bool, (st[2] < nseq_pad) & (st[0] < n_t)):
             break
         step += 1
         ip, opos, i, err, done = st
@@ -307,7 +307,7 @@ def parse_strided_core(u8: torch.Tensor, n, *, lanes: int):
         step = 0
         while True:
             act = (ip < end) & (ip < n)
-            if step % _CHECK_EVERY == 0 and not bool(act.any()):
+            if step % _CHECK_EVERY == 0 and not packing.host_read(bool, act.any()):
                 break
             step += 1
             ipc = ip.clamp(0, pad - 1)
@@ -322,7 +322,7 @@ def parse_strided_core(u8: torch.Tensor, n, *, lanes: int):
 
     def is_fixpoint(e, exits):
         e2 = entries_from(exits)
-        return bool(((e2 == e) | ((e2 >= n) & (e >= n))).all())
+        return packing.host_read(bool, ((e2 == e) | ((e2 >= n) & (e >= n))).all())
 
     # Pass A: exits from the speculative boundary entries (counts discarded).
     xA = walk_count(starts, ends)[0]
@@ -354,7 +354,7 @@ def parse_strided_core(u8: torch.Tensor, n, *, lanes: int):
     step = 0
     while True:
         act = (ip < ends) & (ip < n) & (li < L)
-        if step % _CHECK_EVERY == 0 and not bool(act.any()):
+        if step % _CHECK_EVERY == 0 and not packing.host_read(bool, act.any()):
             break
         step += 1
         ipc = ip.clamp(0, pad - 1)

@@ -39,6 +39,7 @@ import torch
 
 from .. import native as _native
 from ..block import errors as block_errors
+from ..utils import trace
 
 # 32 KiB output tiles by default; ``tile_rows=512`` selects 64 KiB tiles
 # (fewer, longer fire chains, and the dense reserved-fire packer in the
@@ -74,9 +75,14 @@ PLAN_OVERFLOW_CODES = (-100, -102, -103, -104)
 #: every streaming batch that was split into two plans for the same reason
 #: (frame/decoder.py), and ``overflow_sharded_decodes`` every mesh decode
 #: that the resident decoder took over because a group's plan overflowed
-#: (parallel/pipeline.py).
+#: (parallel/pipeline.py). On the host side, ``plan_builds`` counts calls of
+#: the native planner (each rung of the NFMAX ladder is one), ``plan_pool_misses``
+#: the builds whose pooled plan arrays had to be allocated anew (the pool keeps
+#: two generations of one shape), and ``upload_bytes`` the plan bytes that
+#: :func:`ring_plan_device_tensors` hands to the device.
 stats = {"kernel_launches": 0, "checksum_launches": 0, "grouped_launches": 0,
-         "overflow_fused_decodes": 0, "overflow_splits": 0, "overflow_sharded_decodes": 0}
+         "overflow_fused_decodes": 0, "overflow_splits": 0, "overflow_sharded_decodes": 0,
+         "plan_builds": 0, "plan_pool_misses": 0, "upload_bytes": 0}
 
 
 def check_tile_rows(tile_rows: int) -> None:
@@ -159,6 +165,7 @@ def _record_arrays(ntiles: int, nfmax: int, rb: int, tile_rows: int):
     shape = (ntiles, nfmax, rb)
     ishape = (ntiles * tile_rows, 128)
     if cur is None or cur[0].shape != shape or cur[3].shape != ishape:
+        stats["plan_pool_misses"] += 1
         cur = tuple(np.empty(shape, np.int32) for _ in range(3)) + (
             np.empty(ishape, np.uint8),
         )
@@ -200,36 +207,35 @@ def build_ring_plan_parts(
 
     nrows = -(-max(total_out, 1) // 128)
     ntiles = -(-nrows // tile_rows)
-    # Pooled, uninitialized record arrays: the native planner stamps every slot the
-    # kernel can read (fires < nf_tot).
-    (f0, f1, f2, lit_init), seq_holder, seq = _record_arrays(ntiles, nfmax, RB, tile_rows)
-    nf_tot = np.zeros(ntiles, np.int32)
-    fper = np.zeros((ntiles, (nfmax + 31) // 32), np.int32)
-    tot = np.zeros(1, np.int64)
-
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    rc = _native._lib().tlz4_build_ring_plan2(
-        _native._ptr(comp), comp.shape[0],
-        blk_off.ctypes.data_as(i64p), blk_len.ctypes.data_as(i64p),
-        blk_store.ctypes.data_as(u8p), len(parts),
-        1 if independent else 0, total_out,
-        tile_rows, WINDOW_ROWS, RB, nfmax,
-        ntiles, RESOLVE_MIN_DEPTH, RESOLVE_RUNS, nthreads,
-        f0.ctypes.data_as(i32p), f1.ctypes.data_as(i32p),
-        f2.ctypes.data_as(i32p),
-        nf_tot.ctypes.data_as(i32p), fper.ctypes.data_as(i32p),
-        lit_init.ctypes.data_as(u8p),
-        tot.ctypes.data_as(i64p),
-    )
-    if rc == -102 and nfmax < NFMAX_RETRY:
+    while True:
+        with trace.span("ring.plan"):
+            stats["plan_builds"] += 1
+            # Pooled, uninitialized record arrays: the native planner stamps every
+            # slot the kernel can read (fires < nf_tot).
+            (f0, f1, f2, lit_init), seq_holder, seq = _record_arrays(ntiles, nfmax, RB, tile_rows)
+            nf_tot = np.zeros(ntiles, np.int32)
+            fper = np.zeros((ntiles, (nfmax + 31) // 32), np.int32)
+            tot = np.zeros(1, np.int64)
+            rc = _native._lib().tlz4_build_ring_plan2(
+                _native._ptr(comp), comp.shape[0],
+                blk_off.ctypes.data_as(i64p), blk_len.ctypes.data_as(i64p),
+                blk_store.ctypes.data_as(u8p), len(parts),
+                1 if independent else 0, total_out,
+                tile_rows, WINDOW_ROWS, RB, nfmax,
+                ntiles, RESOLVE_MIN_DEPTH, RESOLVE_RUNS, nthreads,
+                f0.ctypes.data_as(i32p), f1.ctypes.data_as(i32p),
+                f2.ctypes.data_as(i32p),
+                nf_tot.ctypes.data_as(i32p), fper.ctypes.data_as(i32p),
+                lit_init.ctypes.data_as(u8p),
+                tot.ctypes.data_as(i64p),
+            )
+        if rc != -102 or nfmax >= NFMAX_RETRY:
+            break
         # record-capacity overflow: climb the retry ladder
-        nxt = next(s for s in NFMAX_STEPS if s > nfmax)
-        return build_ring_plan_parts(
-            parts, total_out, independent=independent, nthreads=nthreads, tile_rows=tile_rows,
-            nfmax=nxt,
-        )
+        nfmax = next(s for s in NFMAX_STEPS if s > nfmax)
     if rc in PLAN_OVERFLOW_CODES:
         return None, None
     if rc < 0:
@@ -297,11 +303,16 @@ def ring_plan_device_tensors(plan: RingPlan, device) -> tuple:
     plan.check_live()
     dev = torch.device(device)
     arrs = (plan.lit_init, plan.rec_f0, plan.rec_f1, plan.rec_f2, plan.nf_tot)
+    stats["upload_bytes"] += sum(a.nbytes for a in arrs)
     if dev.type != "cuda":
         return tuple(torch.from_numpy(a) for a in arrs)
-    return tuple(
-        torch.from_numpy(a).pin_memory().to(dev, non_blocking=True) for a in arrs
-    )
+    with trace.span("ring.upload"):
+        up = []
+        for a in arrs:
+            with trace.span("ring.pin"):
+                pinned = torch.from_numpy(a).pin_memory()
+            up.append(pinned.to(dev, non_blocking=True))
+        return tuple(up)
 
 
 def check_plan_tensors(init, f0, f1, f2, nf_tot, tile_rows: int) -> None:
@@ -341,25 +352,26 @@ def ring_decode(init, f0, f1, f2, nf_tot, *, tile_rows: int = TILE_ROWS,
     tensors it runs :func:`ring_decode_reference`.
     """
     check_plan_tensors(init, f0, f1, f2, nf_tot, tile_rows)
-    if init.device.type != "cuda":
-        return ring_decode_reference(init, f0, f1, f2, nf_tot, tile_rows=tile_rows, ntot=ntot)
-    from ._kernels import launch_ring_decode
+    with trace.span("ring.launch"):
+        if init.device.type != "cuda":
+            return ring_decode_reference(init, f0, f1, f2, nf_tot, tile_rows=tile_rows, ntot=ntot)
+        from ._kernels import launch_ring_decode
 
-    check_kernel_layout(init=init, f0=f0, f1=f1, f2=f2, nf_tot=nf_tot)
-    out = torch.empty(init.shape, dtype=torch.uint8, device=init.device)
-    acc = None if ntot is None else torch.empty((1, 128), dtype=torch.int32, device=init.device)
-    if nf_tot.shape[0]:
-        with torch.cuda.device(init.device):
-            launch_ring_decode(
-                init, f0, f1, f2, nf_tot, out, tile_rows=tile_rows, ntot=ntot,
-                acc=acc, stream=torch.cuda.current_stream().cuda_stream,
-            )
-        stats["kernel_launches"] += 1
-        if acc is not None:
-            stats["checksum_launches"] += 1
-    elif acc is not None:
-        acc.zero_()
-    return out if acc is None else (out, acc)
+        check_kernel_layout(init=init, f0=f0, f1=f1, f2=f2, nf_tot=nf_tot)
+        out = torch.empty(init.shape, dtype=torch.uint8, device=init.device)
+        acc = None if ntot is None else torch.empty((1, 128), dtype=torch.int32, device=init.device)
+        if nf_tot.shape[0]:
+            with torch.cuda.device(init.device):
+                launch_ring_decode(
+                    init, f0, f1, f2, nf_tot, out, tile_rows=tile_rows, ntot=ntot,
+                    acc=acc, stream=torch.cuda.current_stream().cuda_stream,
+                )
+            stats["kernel_launches"] += 1
+            if acc is not None:
+                stats["checksum_launches"] += 1
+        elif acc is not None:
+            acc.zero_()
+        return out if acc is None else (out, acc)
 
 
 def ring_decode_reference(init, f0, f1, f2, nf_tot, *, tile_rows: int = TILE_ROWS,
@@ -451,7 +463,15 @@ def ring_decode_grouped_reference(init, f0, f1, f2, nf_tot, *, tile_rows: int = 
 
 
 def _to_bytes(t: torch.Tensor) -> bytes:
-    return t.cpu().numpy().tobytes()
+    """A device tensor's bytes on the host. On the card the host first waits
+    for the work queued on the tensor's stream (the copy into pageable
+    memory would wait for it anyway), so the two spans part the wait for K1
+    from the copy."""
+    if t.device.type == "cuda":
+        with trace.span("ring.wait"):
+            torch.cuda.current_stream(t.device).synchronize()
+    with trace.span("ring.out"):
+        return t.cpu().numpy().tobytes()
 
 
 def decode_block_ring(comp, total_out: int, *, device=None, as_array: bool = False):
@@ -475,14 +495,15 @@ def part_sizes(parts, max_block_size: int | None = None) -> list[int]:
     walk of the compressed ones. Raises the block error taxonomy on
     malformed input and ``OutputTooSmall`` past ``max_block_size``."""
     sizes = []
-    for payload, is_comp in parts:
-        if is_comp:
-            n_out = _native.measure_block(payload)
-            if max_block_size is not None and n_out > max_block_size:
-                raise block_errors.OutputTooSmall(n_out, max_block_size)
-            sizes.append(n_out)
-        else:
-            sizes.append(len(payload))
+    with trace.span("ring.sizes"):
+        for payload, is_comp in parts:
+            if is_comp:
+                n_out = _native.measure_block(payload)
+                if max_block_size is not None and n_out > max_block_size:
+                    raise block_errors.OutputTooSmall(n_out, max_block_size)
+                sizes.append(n_out)
+            else:
+                sizes.append(len(payload))
     return sizes
 
 

@@ -53,6 +53,7 @@ from ..block import compress_with_dict
 from ..block import errors as block_errors
 from ..ops import packing
 from ..spec.constants import WINDOW_SIZE, get_maximum_output_size
+from ..utils import trace
 from .executor import plan_executor
 from .mesh import (
     MeshLayout,
@@ -115,16 +116,17 @@ def stage_blocks(data, block_size: int, *, linked: bool = False, pad_rows_to: in
     b_pad = -(-nblocks // pad_rows_to) * pad_rows_to
     w = WINDOW_SIZE if linked else 0
     width = packing.size_bucket(w + block_size + 4)
-    rows = np.zeros((b_pad, width), dtype=np.uint8)
-    dlen = np.zeros(b_pad, dtype=np.int32)
-    tlen = np.zeros(b_pad, dtype=np.int32)
-    for i in range(nblocks):
-        s = start + i * block_size
-        blk = buf[s : s + block_size]
-        d = min(w, s)
-        rows[i, : d + blk.shape[0]] = buf[s - d : s + blk.shape[0]]
-        dlen[i] = d
-        tlen[i] = d + blk.shape[0]
+    with trace.span("enc.stage"):
+        rows = np.zeros((b_pad, width), dtype=np.uint8)
+        dlen = np.zeros(b_pad, dtype=np.int32)
+        tlen = np.zeros(b_pad, dtype=np.int32)
+        for i in range(nblocks):
+            s = start + i * block_size
+            blk = buf[s : s + block_size]
+            d = min(w, s)
+            rows[i, : d + blk.shape[0]] = buf[s - d : s + blk.shape[0]]
+            dlen[i] = d
+            tlen[i] = d + blk.shape[0]
     return rows, dlen, tlen, nblocks
 
 
@@ -208,20 +210,24 @@ def _encode_staged(rows, dlen, tlen, dev, geo: dict) -> list[bytes]:
     def read_oldest():
         out, total, done = inflight.pop(0)
         if done is not None:
-            done.synchronize()
-        out, total = out.numpy(), total.numpy()
-        payloads.extend(out[i, : total[i]].tobytes() for i in range(out.shape[0]))
+            with trace.span("enc.wait"):
+                done.synchronize()
+        with trace.span("enc.unpack"):
+            out, total = out.numpy(), total.numpy()
+            payloads.extend(out[i, : total[i]].tobytes() for i in range(out.shape[0]))
 
     for g in range(0, rows.shape[0], _ENCODE_ROWS):
-        sl = slice(g, g + _ENCODE_ROWS)
-        r = put(rows[sl])
-        out, total = encode_chunk_core(r, r.view(torch.int32), put(dlen[sl]), put(tlen[sl]), **geo)
-        done = None
-        if cuda:
-            out, total = get(out), get(total)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(dev))
-        inflight.append((out, total, done))
+        with trace.span("enc.launch"):
+            sl = slice(g, g + _ENCODE_ROWS)
+            r = put(rows[sl])
+            out, total = encode_chunk_core(r, r.view(torch.int32), put(dlen[sl]), put(tlen[sl]),
+                                           **geo)
+            done = None
+            if cuda:
+                out, total = get(out), get(total)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+            inflight.append((out, total, done))
         if len(inflight) > 1:
             read_oldest()
     while inflight:
@@ -316,12 +322,13 @@ def _encode_blocks_sharded(data, block_size: int, linked: bool, mesh, layout: Me
             sl = slice(d * per, (d + 1) * per)
             payloads += _encode_staged(rows[sl], dlen[sl], tlen[sl], dev, geo)
         if verify:
-            for i in range(min(len(payloads), nblocks - first_row)):
-                d, n = int(dlen[i]), int(tlen[i])
-                if not _native.verify_block(payloads[i], rows[i, d:n], rows[i, :d]):
-                    # a fingerprint collision overstated a match
-                    E.stats["verify_fallbacks"] += 1
-                    payloads[i] = compress_with_dict(rows[i, d:n], rows[i, :d])
+            with trace.span("enc.verify"):
+                for i in range(min(len(payloads), nblocks - first_row)):
+                    d, n = int(dlen[i]), int(tlen[i])
+                    if not _native.verify_block(payloads[i], rows[i, d:n], rows[i, :d]):
+                        # a fingerprint collision overstated a match
+                        E.stats["verify_fallbacks"] += 1
+                        payloads[i] = compress_with_dict(rows[i, d:n], rows[i, :d])
         return payloads
 
     payloads = _gather_blocks(agree(encode_own, layout), layout, [per * len(mesh)] * layout.world)
@@ -367,9 +374,12 @@ def _decode_batch(rows, clen, *, out_pad, nseq_pad, capacity=None):
                 torch.zeros(0, dtype=torch.int32, device=dev),
                 torch.zeros((0, 5), dtype=torch.bool, device=dev))
     per = max(1, _DECODE_POSITIONS // max(out_pad, rows.shape[1]))
-    parts = [decode_resident_rows(rows[i : i + per], clen[i : i + per], out_pad=out_pad,
-                                  nseq_pad=nseq_pad, capacity=capacity)
-             for i in range(0, rows.shape[0], per)]
+    parts = []
+    for i in range(0, rows.shape[0], per):
+        with trace.span("resident.step"):
+            parts.append(decode_resident_rows(rows[i : i + per], clen[i : i + per],
+                                              out_pad=out_pad, nseq_pad=nseq_pad,
+                                              capacity=capacity))
     return parts[0] if len(parts) == 1 else tuple(torch.cat(t) for t in zip(*parts))
 
 

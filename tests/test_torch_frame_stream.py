@@ -234,9 +234,13 @@ def test_decoder_multibatch(monkeypatch, ring_calls, engine, mode):
     f = _ref_compress(SOUP, block_size=BlockSize.Max64KB, block_mode=mode)
     before = dict(R.stats)
     assert _read(f, engine) == SOUP
-    # 11 blocks in batches of 4: three kernel calls, none overflowed
+    # 11 blocks in batches of 4: three kernel calls, none overflowed; the
+    # host's plan counters move with the plans built
     assert ring_calls[0] == (3 if engine == "device" else 0)
-    assert R.stats == before
+    host = ("plan_builds", "plan_pool_misses", "upload_bytes")
+    assert {k: v for k, v in R.stats.items() if k not in host} == {
+        k: v for k, v in before.items() if k not in host}
+    assert R.stats["plan_builds"] - before["plan_builds"] >= ring_calls[0]
 
 
 @pytest.mark.parametrize("engine", ENGINES)

@@ -24,7 +24,6 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch.examples.decompress_block",
     "lz4_flex_tpu_torch.examples.device_pipeline",
     "lz4_flex_tpu_torch.experiments",
-    "lz4_flex_tpu_torch.experiments.decode_step_time",
     "lz4_flex_tpu_torch.experiments.fire_probe",
     "lz4_flex_tpu_torch.experiments.gather_probe",
     "lz4_flex_tpu_torch.experiments.plane_time",
@@ -56,6 +55,7 @@ PORT_MODULES = [
     "lz4_flex_tpu_torch.spec.xxhash32",
     "lz4_flex_tpu_torch.utils",
     "lz4_flex_tpu_torch.utils.checksum",
+    "lz4_flex_tpu_torch.utils.trace",
     "chip_smoke",
 ]
 
