@@ -6,8 +6,9 @@
 Phases (any failure raises and the exit code is not 0):
 
 1. Probe and build: require CUDA, print the card's name and power limit,
-   build the native host library (g++) and the ring kernel (nvcc) from the
-   checkout's sources, in parallel, and print the build seconds.
+   build the native host library (g++), the ring kernel, the resident decode
+   kernel and the probes (nvcc) from the checkout's sources, in parallel, and
+   print the build seconds.
 2. Kernel vs plain version: on plans of at most 1 MiB at 256- and 512-row
    tiles, the ring kernel (K1a) and its checksum variant (K1b) on the card
    against ``ring_decode_reference`` on the same tensors: byte-equal output,
@@ -64,7 +65,12 @@ Phases (any failure raises and the exit code is not 0):
    row held bit-equal to their CPU run, each row equal to it decoded alone;
    ``decode_step`` on device tensors at B=1, 8, 32 and 160 (the whole soup)
    byte-exact, with its time, device events, peak device memory and bytes
-   bound; its device events at B=32 must stay within 1.5x of B=1's. Stage
+   bound; each call must be one launch of the resident kernel by its
+   counter, and 20 calls at B=32 under one profiler window must show the
+   card about one resident kernel event a call and no other. The resident
+   kernel alone at the batch cell's shape (B = 16, 87 and 256 rows of
+   64 KiB blocks of Zipf word soup) against ``decode_resident_rows_reference``
+   on the same tensors: byte-exact, timed beside it. Stage
    times (map build, resolution, materialization, parse)
    and end to end beside the ring engine and the native host decoder. The
    walk and strided parses on one 64 KiB block, timed and held against the
@@ -134,7 +140,8 @@ Phases (any failure raises and the exit code is not 0):
    times out or disagrees fails the run.
    Then one JSON line ``{"kernels": ...}`` whose ``max_abs_err`` covers every
    comparison and whose K1 and K1c launches count every path of phases 3,
-   6, 7 and 9-11.
+   6, 7 and 9-11; its ``resident_decode:B=<rows>`` entries are phase 8's
+   timings of the resident kernel, their launches counted around them.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -210,7 +217,7 @@ def main() -> None:
         except Exception as e:  # re-raised below, after all builds end
             errors.append(e)
 
-    cuda_stems = ("ring_decode", "fire_probe", "gather_probe")
+    cuda_stems = ("ring_decode", "resident_decode", "fire_probe", "gather_probe")
     threads = [threading.Thread(target=build, args=("native", native._build))] + [
         threading.Thread(target=build, args=(stem, lambda stem=stem: _kernels.build(stem)))
         for stem in cuda_stems]
@@ -549,6 +556,21 @@ def main() -> None:
             print(f"    {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<5d} {a.key[:90]}")
         return len(spans)
 
+    def device_event_names(fn, calls: int) -> dict:
+        """``calls`` calls of ``fn`` under one torch.profiler window, the card
+        synchronised after each: the device events (kernels and copies) the
+        profiler saw, counted by name."""
+        from collections import Counter
+
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+        return Counter(e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+
     legacy_f, legacy_parts = bytearray(struct.pack("<I", LZ4F_LEGACY_MAGIC_NUMBER)), []
     for i in range(0, n, 8 * MIB):
         c = native.compress_block(data[i : i + 8 * MIB])
@@ -873,10 +895,12 @@ def main() -> None:
     alens = np.array([len(p) for p in all_parts], np.int32)
     arows_d, alens_d = torch.from_numpy(arows).cuda(), torch.from_numpy(alens).cuda()
     codec64 = LZ4Codec(cfg64)
-    step_events = {}
+    step_launches = {}
     for b in (1, 8, 32, len(all_parts)):
         r, lens_b = arows_d[:b], alens_d[:b]
+        launched = R.stats["resident_launches"]
         out, total, flags = codec64.decode_step(r, lens_b)
+        step_launches[b] = R.stats["resident_launches"] - launched
         if (bool(flags.any()) or total.tolist() != [len(x) for x in all_blocks[:b]]
                 or out[:, :65536].cpu().numpy().tobytes() != b"".join(all_blocks[:b])):
             raise SystemExit(f"chip_smoke: decode_step at B={b} decoded wrong")
@@ -887,23 +911,63 @@ def main() -> None:
         codec64.decode_step(r, lens_b)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        step_events[b] = device_busy(lambda: codec64.decode_step(r, lens_b),
-                                     f"decode_step B={b} (profiled)")
+        # a kernel launched from a native library may be missing from a
+        # one-call profile: the launch count comes from the counter
+        events = device_busy(lambda: codec64.decode_step(r, lens_b), f"decode_step B={b} (profiled)")
         # payloads in; bytes, lengths and flags out
         moved = int(alens[:b].sum()) + b * 65536 + b * (4 + 5)
         bound = moved / FP.HBM_BYTES_PER_S * 1e3
         print(f"  LZ4Codec.decode_step B={b:3d} x 64 KiB (device tensors in and out): {ms:.3f} ms "
-              f"= {b * 65536 / MIB / (ms / 1e3):.1f} MiB/s, {step_events[b]} device events, peak "
+              f"= {b * 65536 / MIB / (ms / 1e3):.1f} MiB/s, {step_launches[b]} resident kernel "
+              f"launch, {events} device events seen by the profiler, peak "
               f"device memory {peak / MIB:.1f} MiB ({(peak - before) / MIB:.1f} above what was "
               f"held before the call), bytes bound {bound:.5f} ms; dispatch cap "
               f"{PP._DECODE_POSITIONS} positions [{card}]",
               flush=True)
     print(f"  decode_step on all {len(all_parts)} blocks beside the 10 MiB soup as one block: "
           f"decode_block_device (ring) {e2e_ms:.3f} ms, native host decoder {host_dec_ms:.3f} ms "
-          f"(phase 4); launches at B=32 / B=1 {step_events[32] / step_events[1]:.3f} [{card}]",
-          flush=True)
-    if step_events[32] > 1.5 * step_events[1]:
-        raise SystemExit(f"chip_smoke: decode_step's launches grow with the batch: {step_events}")
+          f"(phase 4); resident kernel launches a call {step_launches} [{card}]", flush=True)
+    if set(step_launches.values()) != {1}:
+        raise SystemExit(f"chip_smoke: decode_step is not one kernel launch a call: {step_launches}")
+    # the same from the card's side, over many calls: a one-call window may
+    # miss the kernel launched from its library
+    calls = 20
+    seen = device_event_names(lambda: codec64.decode_step(arows_d[:32], alens_d[:32]), calls)
+    resident_events = sum(v for k, v in seen.items() if "resident_decode_kernel" in k)
+    other_events = sum(seen.values()) - resident_events
+    print(f"  decode_step B=32, {calls} calls under one profiler window: {resident_events} resident "
+          f"kernel events, {other_events} other device events {dict(seen)} [{card}]", flush=True)
+    if other_events or not calls // 2 <= resident_events <= calls:
+        raise SystemExit(f"chip_smoke: decode_step is not about one device kernel a call: "
+                         f"{dict(seen)} over {calls} calls")
+
+    # the resident kernel alone at the batch cell's shape, against its plain
+    # version on the same tensors
+    from tests.torch_inputs import block_rows
+
+    zrows, zlens, _ = block_rows(256, seed=14)
+    zu8, zn = torch.from_numpy(zrows).cuda(), torch.from_numpy(zlens).cuda()
+    rkw = dict(out_pad=65536, nseq_pad=24576)
+    resident = {}
+    for b in (16, 87, 256):
+        u8b, nb = zu8[:b], zn[:b]
+        launched = R.stats["resident_launches"]
+        got = D.decode_resident_rows(u8b, nb, **rkw)
+        want = D.decode_resident_rows_reference(u8b, nb, **rkw)
+        e = max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
+        ms = kernel_ms(lambda: D.decode_resident_rows(u8b, nb, **rkw))
+        plain = kernel_ms(lambda: D.decode_resident_rows_reference(u8b, nb, **rkw), iters=5,
+                          warmup=1)
+        # payloads read once; bytes, lengths and flags written once
+        bound = (int(zlens[:b].sum()) + b * (65536 + 4 + 5)) / FP.HBM_BYTES_PER_S * 1e3
+        resident[b] = {"launches": R.stats["resident_launches"] - launched, "max_abs_err": e,
+                       "ms": ms, "plain_ms": plain, "bound_ms": bound}
+        print(f"  resident kernel B={b:3d} x 64 KiB Zipf word soup: {ms:.3f} ms "
+              f"({b * 65536 / MIB / (ms / 1e3):.1f} MiB/s), plain version {plain:.3f} ms, bytes "
+              f"bound {bound:.5f} ms, max_abs_err {e}, {resident[b]['launches']} launches "
+              f"[{card}]", flush=True)
+        if e:
+            raise SystemExit(f"chip_smoke: the resident kernel differs from its plain version at B={b}")
 
     # stage times of the v2 engine and the doubling parse on the 10 MiB soup
     seq, out_pad, nseq_pad, words, tables, u8 = engine_inputs(comp)
@@ -926,8 +990,12 @@ def main() -> None:
                                                             has_dict=False), iters=5, warmup=1),
         "parse_core": kernel_ms(lambda: P.parse_core(cu, len(comp), nseq_pad=parse_pad),
                                 iters=5, warmup=1),
-        "decode_resident_core (doubling, v2)": kernel_ms(lambda: D.decode_resident_core(
-            cu, len(comp), out_pad=out_pad, nseq_pad=parse_pad), iters=5, warmup=1),
+        "decode_resident_core (doubling, v2; the resident kernel)": kernel_ms(
+            lambda: D.decode_resident_core(cu, len(comp), out_pad=out_pad, nseq_pad=parse_pad),
+            iters=5, warmup=1),
+        "decode_resident_rows_reference (its torch ops)": kernel_ms(
+            lambda: D.decode_resident_rows_reference(cu[None], len(comp), out_pad=out_pad,
+                                                     nseq_pad=parse_pad), iters=5, warmup=1),
     }
     table_bytes = 4 * 4 * seq.nseq  # out_off, lit_start, lit_len, match_off
     bound = {  # each input read once, each output written once, over the HBM rate
@@ -1612,6 +1680,13 @@ def main() -> None:
          "ms": k_ms["K1c G=8"], "plain_ms": plain_g8, "bound_ms": grouped[8]["bound"],
          "bound_by": "bytes", "library_ms": None},
     ]
+    # The resident kernel at the batch cell's shape (phase 8).
+    for b, r in resident.items():
+        kernels.append({
+            "name": f"resident_decode:B={b}", "route": "cuda",
+            "source": "lz4_flex_tpu_torch/csrc/resident_decode.cu",
+            "replaces": "lz4_flex_tpu/parallel/pipeline.py:124", **r, "bound_by": "bytes",
+            "library_ms": None})
     # Fire probe entries: the 10 MiB bench soup at the main path's tile height.
     for r in fres["rows"]:
         if r["tile_rows"] == R.TILE_ROWS and r["corpus"] == "bench soup":

@@ -6,9 +6,10 @@ plain C interface, at first use, into the checkout's ``build/`` directory
 Nothing here runs at import time, and nothing falls back: a failed build or
 launch raises.
 
-  ring_decode   K1, the ring decoder, on one plan or (K1c) several (ops/ringdecode.py)
-  fire_probe    K1's fire loop in variants (experiments/fire_probe.py)
-  gather_probe  shared-memory gather forms (experiments/gather_probe.py)
+  ring_decode      K1, the ring decoder, on one plan or (K1c) several (ops/ringdecode.py)
+  resident_decode  the resident decode of a batch of payload rows (ops/decode.py)
+  fire_probe       K1's fire loop in variants (experiments/fire_probe.py)
+  gather_probe     shared-memory gather forms (experiments/gather_probe.py)
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Headers each source includes (part of its build hash).
 _HEADERS = {
     "ring_decode": ("ring_decode.cuh",),
+    "resident_decode": (),
     "fire_probe": ("ring_decode.cuh",),
     "gather_probe": (),
 }
@@ -37,6 +39,10 @@ _SIGNATURES = {
     "ring_decode": {
         "tlz4_ring_decode": (_ci, [_vp] * 6 + [_ci] * 4 + [ctypes.c_longlong, _vp, _vp]),
         "tlz4_cuda_error_string": (ctypes.c_char_p, [_ci]),
+    },
+    "resident_decode": {
+        "tlz4_resident_decode": (_ci, [_vp, ctypes.c_longlong, _ci, _vp] + [_ci] * 4 + [_vp] * 4),
+        "tlz4_resident_error_string": (ctypes.c_char_p, [_ci]),
     },
     "fire_probe": {
         "tlz4_fire_probe": (_ci, [_ci] + [_vp] * 6 + [_ci] * 3 + [_vp]),
@@ -117,3 +123,18 @@ def launch_ring_decode(init, f0, f1, f2, nf_tot, out, *, tile_rows: int,
         stream,
     )
     check_launch(err, "ring_decode", rl.tlz4_cuda_error_string)
+
+
+def launch_resident_decode(u8, clen, out, total, flags, *, nseq_pad: int, capacity: int,
+                           stream: int) -> None:
+    """Launch the resident decode on ``stream`` over the (B, width) payload
+    rows ``u8`` (rows contiguous, any row stride) with their (B,) int32
+    lengths ``clen``, into ``out`` (B, out_pad) uint8, ``total`` (B,) int32
+    and ``flags`` (B, 5) bool. The tensors are already checked by the
+    caller. Raises RuntimeError when the launch is refused."""
+    rl = lib("resident_decode")
+    err = rl.tlz4_resident_decode(
+        u8.data_ptr(), u8.stride(0), u8.shape[1], clen.data_ptr(), u8.shape[0], out.shape[1],
+        nseq_pad, capacity, out.data_ptr(), total.data_ptr(), flags.data_ptr(), stream,
+    )
+    check_launch(err, "resident_decode", rl.tlz4_resident_error_string)

@@ -27,7 +27,10 @@ is v2 (fragment cells, the default). ``parse="host"`` feeds them the native
 parser's sequence table, ``parse="device"`` the on-device parse of
 ops/parse.py; ``decode_resident_core`` fuses the device parse and an
 expansion with input and output on the device, and ``decode_resident_rows``
-does so for a batch of blocks as rows in one batched program.
+does so for a batch of blocks as rows in one batched program: on the card
+one launch of the hand-written kernel ``csrc/resident_decode.cu``, which
+walks each row's tokens, and on the CPU those torch ops
+(``decode_resident_rows_reference``).
 """
 
 from __future__ import annotations
@@ -176,19 +179,23 @@ def decode_resident_core(
     bytes feed a device pipeline without a trip to the host). ``u8`` is the
     payload padded with at least one zero byte, ``clen`` its length (int or
     () tensor). Returns (out (out_pad,) uint8, total_out, error_flags):
-    the batched body of :func:`decode_resident_rows` on a batch of one.
+    :func:`decode_resident_rows` on a batch of one (on the card, one launch
+    of the resident kernel); ``parse_engine="walk"`` runs the token-walk
+    parse's torch ops instead.
 
     error_flags is a (5,) bool tensor: [literal_oob, truncated, offset_zero,
     offset_oob, output_too_small], the checked-decode error set of lz4_flex
     src/block/mod.rs:82-98 plus the capacity check."""
-    from .parse import parse_rows, parse_walk_core, row_lengths
+    from .parse import parse_walk_core, row_lengths
 
     if parse_engine == "walk":
         tables = [t[None] for t in parse_walk_core(u8, clen, nseq_pad=nseq_pad)]
+        out = _expand_parsed(u8[None], tables, out_pad=out_pad, capacity=capacity,
+                             expand_engine=expand_engine)
     else:
-        tables = parse_rows(u8[None], row_lengths(clen, 1, u8.device), nseq_pad=nseq_pad)
-    out = _expand_parsed(u8[None], tables, out_pad=out_pad, capacity=capacity,
-                         expand_engine=expand_engine)
+        out = decode_resident_rows(u8[None], row_lengths(clen, 1, u8.device), out_pad=out_pad,
+                                   nseq_pad=nseq_pad, capacity=capacity,
+                                   expand_engine=expand_engine)
     return tuple(t[0] for t in out)
 
 
@@ -197,13 +204,75 @@ def decode_resident_rows(u8, clen, *, out_pad, nseq_pad, capacity=None, expand_e
     JAX package's ``vmap`` of it with the doubling parse: ``u8`` (B, pad)
     payload rows, each padded with at least one zero byte, ``clen`` their
     (B,) lengths -> ((B, out_pad) uint8 outputs, (B,) int32 lengths, (B, 5)
-    bool flags). One batched parse and one batched expansion; row b's
-    results, malformed or not, are those of row b decoded alone."""
+    bool flags); row b's results, malformed or not, are those of row b
+    decoded alone.
+
+    On CUDA tensors this is one launch of the resident kernel
+    (:func:`resident_decode_kernel`), whatever the expansion engine: it
+    returns what the v2 expansion returns, and the engines differ only in
+    the bytes past each row's total. CPU tensors take the torch ops of
+    :func:`decode_resident_rows_reference`, the only place where
+    ``expand_engine`` (default :func:`default_expand_engine`) picks one."""
+    from .parse import row_lengths
+
+    n = row_lengths(clen, u8.shape[0], u8.device)
+    if u8.device.type == "cuda":
+        _expand_fn(expand_engine)  # an unknown engine raises here as on the CPU
+        return resident_decode_kernel(u8, n, out_pad=out_pad, nseq_pad=nseq_pad,
+                                      capacity=capacity)
+    return decode_resident_rows_reference(u8, n, out_pad=out_pad, nseq_pad=nseq_pad,
+                                          capacity=capacity, expand_engine=expand_engine)
+
+
+def decode_resident_rows_reference(u8, clen, *, out_pad, nseq_pad, capacity=None,
+                                   expand_engine=None):
+    """The plain version of :func:`decode_resident_rows`, torch ops on the
+    rows' device: one batched parse (``parse.parse_rows``) and one batched
+    expansion, whose loops read a device scalar a round."""
     from .parse import parse_rows, row_lengths
 
     tables = parse_rows(u8, row_lengths(clen, u8.shape[0], u8.device), nseq_pad=nseq_pad)
     return _expand_parsed(u8, tables, out_pad=out_pad, capacity=capacity,
                           expand_engine=expand_engine)
+
+
+def resident_decode_kernel(u8, clen, *, out_pad, nseq_pad, capacity=None):
+    """The resident decode as one launch of the kernel
+    ``csrc/resident_decode.cu`` on the current stream: ``u8`` (B, width)
+    uint8 CUDA rows (each row contiguous, any row stride), ``clen`` their
+    (B,) int32 lengths on the same card. Returns what
+    :func:`decode_resident_rows_reference` returns, byte for byte, in tensors
+    made with ``torch.empty`` that the kernel fills; no host read. Raises
+    ValueError on tensors or sizes the kernel does not take."""
+    if u8.dtype != torch.uint8 or u8.dim() != 2:
+        raise ValueError(f"rows must be a 2-D uint8 tensor, got {u8.dtype} {tuple(u8.shape)}")
+    B, width = u8.shape
+    if clen.dtype != torch.int32 or tuple(clen.shape) != (B,):
+        raise ValueError(f"lengths must be int32 ({B},), got {clen.dtype} {tuple(clen.shape)}")
+    if (width > 1 and u8.stride(1) != 1) or not clen.is_contiguous():
+        raise ValueError("each row and the lengths must be contiguous")
+    if not 0 < width < 2**31:
+        raise ValueError(f"row width must be in [1, 2**31), got {width}")
+    if not 0 < out_pad < 2**31 or out_pad % 16 or not 0 < nseq_pad < 2**31:
+        raise ValueError(f"out_pad must be a positive multiple of 16 and nseq_pad positive "
+                         f"(both under 2**31), got {out_pad} and {nseq_pad}")
+    if u8.device.type != "cuda" or clen.device != u8.device:
+        raise ValueError(f"the resident kernel takes rows and lengths on one CUDA card, got "
+                         f"{u8.device} and {clen.device} (CPU tensors take "
+                         "decode_resident_rows_reference)")
+    cap = out_pad if capacity is None else max(-(2**31), min(int(capacity), 2**31 - 1))
+    out = torch.empty((B, out_pad), dtype=torch.uint8, device=u8.device)
+    total = torch.empty(B, dtype=torch.int32, device=u8.device)
+    flags = torch.empty((B, 5), dtype=torch.bool, device=u8.device)
+    if B:
+        from ._kernels import launch_resident_decode
+
+        with torch.cuda.device(u8.device):
+            launch_resident_decode(u8, clen, out, total, flags, nseq_pad=nseq_pad, capacity=cap,
+                                   stream=torch.cuda.current_stream().cuda_stream)
+        stats["resident_launches"] += 1
+        stats["resident_rows"] += B
+    return out, total, flags
 
 
 def _expand_parsed(u8, tables, *, out_pad, capacity, expand_engine):

@@ -79,10 +79,14 @@ PLAN_OVERFLOW_CODES = (-100, -102, -103, -104)
 #: the native planner (each rung of the NFMAX ladder is one), ``plan_pool_misses``
 #: the builds whose pooled plan arrays had to be allocated anew (the pool keeps
 #: two generations of one shape), and ``upload_bytes`` the plan bytes that
-#: :func:`ring_plan_device_tensors` hands to the device.
+#: :func:`ring_plan_device_tensors` hands to the device. ``resident_launches``
+#: counts launches of the resident kernel (ops/decode.py:resident_decode_kernel,
+#: one a group of rows in ``_decode_batch``) and ``resident_rows`` the rows
+#: they decoded.
 stats = {"kernel_launches": 0, "checksum_launches": 0, "grouped_launches": 0,
          "overflow_fused_decodes": 0, "overflow_splits": 0, "overflow_sharded_decodes": 0,
-         "plan_builds": 0, "plan_pool_misses": 0, "upload_bytes": 0}
+         "plan_builds": 0, "plan_pool_misses": 0, "upload_bytes": 0,
+         "resident_launches": 0, "resident_rows": 0}
 
 
 def check_tile_rows(tile_rows: int) -> None:

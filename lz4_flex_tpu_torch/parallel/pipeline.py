@@ -38,9 +38,9 @@ overflows its static shape the resident decoder takes the frame
 The batched device-resident decode ``_decode_batch`` (under
 ``LZ4Codec.decode_step``, ``roundtrip_step_sharded`` and the overflow
 decode) is the JAX package's ``_decode_batch``: its ``vmap`` over rows is
-one batched program over the rows (``ops.decode.decode_resident_rows``),
-whose loops run while any row's data says and leave a finished row as it
-stands.
+one batched program over the rows (``ops.decode.decode_resident_rows``): on
+the card one launch of the resident kernel, on the CPU torch ops whose loops
+run while any row's data says and leave a finished row as it stands.
 """
 
 from __future__ import annotations
@@ -362,8 +362,9 @@ def _decode_batch(rows, clen, *, out_pad, nseq_pad, capacity=None):
     rows, each padded with at least one zero byte, and their (B,) lengths ->
     ((B, out_pad) uint8 outputs, (B,) int32 lengths, (B, 5) bool error
     flags), the JAX package's ``vmap`` of the resident decode as one batched
-    program (``ops.decode.decode_resident_rows``) a group of rows, groups of
-    at most ``_DECODE_POSITIONS`` positions in order; ``capacity`` (default
+    program (``ops.decode.decode_resident_rows``: on the card one kernel
+    launch) a group of rows, groups of at most ``_DECODE_POSITIONS``
+    positions in order; ``capacity`` (default
     ``out_pad``) is the output size past which a row flags
     output_too_small."""
     from ..ops.decode import decode_resident_rows

@@ -1,5 +1,6 @@
-"""The ring kernel (one plan, and grouped: K1c) and the probes' kernels on
-the card against their plain PyTorch versions, the fallback decode engines
+"""The ring kernel (one plan, and grouped: K1c), the resident decode kernel
+and the probes' kernels on the card against their plain PyTorch versions,
+the fallback decode engines
 and the all-device encoder (torch ops) on the card against their CPU run,
 the mesh pipelines on one card against their CPU run, and the entry points
 with their default device.
@@ -11,6 +12,7 @@ machine without it they run with
 """
 
 import io
+import time
 
 import numpy as np
 import pytest
@@ -29,8 +31,9 @@ from lz4_flex_tpu_torch.ops import parse as P
 from lz4_flex_tpu_torch.ops import ringdecode as R
 from lz4_flex_tpu_torch.ops.decode import decode_block_device
 from lz4_flex_tpu_torch.ops.sequences import parse_sequences_host
+from lz4_flex_tpu_torch.utils import trace
 
-from .torch_inputs import block_inputs, wild_plan_fields, word_soup
+from .torch_inputs import block_inputs, block_rows, wild_plan_fields, word_soup
 
 
 def block_compress_with_dict(data: bytes, dic: bytes) -> bytes:
@@ -375,10 +378,20 @@ def test_parse_engines_equal_cpu_run(card, name):
         _same(*_on_both(card, fn, [u8], len(comp), nseq_pad=nseq_pad))
     for lanes in (4, 8):
         _same(*_on_both(card, P.parse_strided_core, [u8], len(comp), lanes=lanes))
-    for parse in ("doubling", "walk"):
-        for expand in ("v1", "v2"):
-            _same(*_on_both(card, D.decode_resident_core, [u8], len(comp), out_pad=65536,
-                            nseq_pad=nseq_pad, parse_engine=parse, expand_engine=expand))
+    kw = dict(out_pad=65536, nseq_pad=nseq_pad)
+    for expand in ("v1", "v2"):
+        _same(*_on_both(card, D.decode_resident_core, [u8], len(comp), parse_engine="walk",
+                        expand_engine=expand, **kw))
+    # the doubling parse on the card is the resident kernel whatever the
+    # engine: the v2 program's result; v1 writes other bytes past the total
+    cpu = {e: D.decode_resident_core(torch.from_numpy(u8), len(comp), expand_engine=e, **kw)
+           for e in ("v1", "v2")}
+    for expand in ("v1", "v2"):
+        got = D.decode_resident_core(torch.from_numpy(u8).to(card), len(comp),
+                                     expand_engine=expand, **kw)
+        _same(got, cpu["v2"])
+        total = int(cpu["v1"][1])
+        _same((got[0][:total], *got[1:]), (cpu["v1"][0][:total], *cpu["v1"][1:]))
 
 
 def test_fallback_entry_points_on_card(card, monkeypatch):
@@ -493,3 +506,184 @@ def test_mesh_decode_and_encode_on_one_card(card):
     assert got == PP.encode_blocks_sharded(data[:600000], 65536, mesh=["cpu"] * 4)
     comp, lens, offsets, ok = PP.roundtrip_step_sharded(data[:300000], 65536, mesh=["cuda:0"] * 2)
     assert bool(ok) and comp.device.type == "cuda"
+
+
+# The resident decode kernel (csrc/resident_decode.cu) against its plain
+# version, decode_resident_rows_reference, on the card: outputs, totals and
+# flags byte for byte.
+
+MALFORMED = [  # (payload, total, flags) read from the plain version on the CPU
+    ("12410000", 7, [False, False, True, False, False]),
+    ("3241424305001044", 10, [False, False, False, True, False]),
+    ("524142", 5, [True, False, False, False, False]),
+    ("1f41020080", 148, [False, True, False, True, False]),
+]
+
+
+def _rows(payloads, width=None, garbage=None):
+    """(B, width) uint8 payload rows (width: the size bucket past the longest
+    payload), zero past each payload unless ``garbage`` gives a byte to put
+    in the 24 bytes after it, and their int32 lengths."""
+    width = width or packing.size_bucket(max(max(len(p) for p in payloads), 4) + 1)
+    rows = np.zeros((len(payloads), width), np.uint8)
+    for i, p in enumerate(payloads):
+        rows[i, : len(p)] = np.frombuffer(p, np.uint8)
+        if garbage is not None:
+            rows[i, len(p) : len(p) + 24] = garbage
+    return rows, np.array([len(p) for p in payloads], np.int32)
+
+
+def _kernel_equals_plain(card, rows, lens, **kw):
+    """decode_resident_rows on the card (one launch) against the plain version
+    on the card and on the CPU; returns the kernel's result on the host."""
+    u8, n = torch.from_numpy(rows).to(card), torch.from_numpy(lens).to(card)
+    before = R.stats["resident_launches"]
+    got = D.decode_resident_rows(u8, n, **kw)
+    assert R.stats["resident_launches"] == before + 1
+    want = D.decode_resident_rows_reference(u8, n, **kw)
+    _same(got, tuple(t.cpu() for t in want))
+    if rows.shape[0] * rows.shape[1] <= 1 << 22:
+        _same(got, D.decode_resident_rows_reference(torch.from_numpy(rows), torch.from_numpy(lens),
+                                                    **kw))
+    return tuple(t.cpu() for t in got)
+
+
+def test_resident_kernel_equals_plain_on_the_cells_shape(card):
+    rows, lens, text = block_rows(256, seed=14)
+    out, total, flags = _kernel_equals_plain(card, rows, lens, out_pad=65536, nseq_pad=24576)
+    assert out.numpy().tobytes() == text and (total == 65536).all() and not flags.any()
+
+
+@pytest.mark.parametrize("nrows", [1, 17, 300])
+def test_resident_kernel_in_decode_batch_groups(card, nrows):
+    from lz4_flex_tpu_torch.parallel import pipeline as PP
+
+    # the last block is short: padding
+    text = word_soup(nrows * 65536 - 777, seed=nrows, vocab=50_000, zipf=1.0)
+    rows, lens = _rows([native.compress_block(text[i : i + 65536])
+                        for i in range(0, len(text), 65536)], width=65536)
+    u8, n = torch.from_numpy(rows).to(card), torch.from_numpy(lens).to(card)
+    before = R.stats["resident_launches"]
+    got = PP._decode_batch(u8, n, out_pad=65536, nseq_pad=24576)
+    per = PP._DECODE_POSITIONS // 65536
+    assert R.stats["resident_launches"] == before + -(-nrows // per)
+    parts = [D.decode_resident_rows_reference(u8[i : i + per], n[i : i + per], out_pad=65536,
+                                              nseq_pad=24576) for i in range(0, nrows, per)]
+    _same(got, tuple(torch.cat(t).cpu() for t in zip(*parts)))
+    out, total, _ = got
+    assert int(total[-1]) == len(text) - (nrows - 1) * 65536
+    assert b"".join(out[i, : int(total[i])].cpu().numpy().tobytes() for i in range(nrows)) == text
+
+
+def test_resident_kernel_takes_every_expand_engine(card, monkeypatch):
+    # the engine picks among the torch ops only: CUDA rows always launch the kernel
+    rows, lens, text = block_rows(4, seed=17)
+    u8, n = torch.from_numpy(rows).to(card), torch.from_numpy(lens).to(card)
+    monkeypatch.setenv("TLZ4_EXPAND", "v1")
+    for engine in (None, "v1", "v2"):
+        before = R.stats["resident_launches"]
+        out, total, flags = D.decode_resident_rows(u8, n, out_pad=65536, nseq_pad=24576,
+                                                   expand_engine=engine)
+        assert R.stats["resident_launches"] == before + 1
+        assert out.cpu().numpy().tobytes() == text and (total == 65536).all() and not flags.any()
+    with pytest.raises(ValueError, match="unknown expand engine"):
+        D.decode_resident_rows(u8, n, out_pad=65536, nseq_pad=24576, expand_engine="v3")
+
+
+def test_resident_kernel_on_4mib_rows(card):
+    # out_pad 4 MiB: the window is a ring in shared memory, flushed as it goes
+    blocks = [word_soup(4 << 20, seed=40, vocab=50_000, zipf=1.0),
+              block_inputs()["periodic_ring_boundary"] * 11,
+              block_inputs()["incompressible"] * 20]
+    rows, lens = _rows([native.compress_block(b[: 4 << 20]) for b in blocks])
+    out, total, flags = _kernel_equals_plain(card, rows, lens, out_pad=4 << 20,
+                                             nseq_pad=packing.size_bucket(rows.shape[1] // 3 + 2))
+    for i, b in enumerate(blocks):
+        assert out[i, : int(total[i])].numpy().tobytes() == b[: 4 << 20]
+    assert not flags.any()
+
+
+def test_resident_kernel_capacity_below_total(card):
+    rows, lens, _ = block_rows(3, seed=15)
+    _, total, flags = _kernel_equals_plain(card, rows, lens, out_pad=65536, nseq_pad=24576,
+                                           capacity=60000)
+    assert (total == 65536).all() and flags[:, 4].all() and not flags[:, :4].any()
+
+
+def test_resident_kernel_malformed_rows(card):
+    rows, lens = _rows([bytes.fromhex(h) for h, _, _ in MALFORMED], width=256)
+    out, total, flags = _kernel_equals_plain(card, rows, lens, out_pad=256, nseq_pad=256)
+    assert total.tolist() == [t for _, t, _ in MALFORMED]
+    assert flags.tolist() == [f for _, _, f in MALFORMED]
+    assert out[0, :8].tolist() == [65] * 7 + [0]
+    assert out[1, :10].tolist() == [65, 66, 67, 0, 0, 65, 66, 67, 0, 68]
+    assert out[2, :3].tolist() == [65, 66, 0]
+    assert out[3, :4].tolist() == [65, 0, 65, 0]
+
+
+def _corrupted(comp: bytes, rng) -> bytes:
+    """One malformed variant of a valid block: truncated (mid-LSIC where the
+    block has a run), an offset set to 0 or reaching before the block, the
+    last literals overrunning the payload, a few flipped bytes, or empty."""
+    c = bytearray(comp)
+    seq = parse_sequences_host(comp)
+    kind = rng.integers(7)
+    if kind == 0:
+        ff = [i for i in range(len(c)) if c[i] == 0xFF]
+        return bytes(c[: ff[rng.integers(len(ff))] + 1] if ff else c[: rng.integers(len(c))])
+    if kind in (1, 2) and seq.nseq > 1:
+        j = int(rng.integers(seq.nseq - 1))
+        at = int(seq.lit_start[j] + seq.lit_len[j])
+        c[at : at + 2] = b"\0\0" if kind == 1 else b"\xff\xff"
+        return bytes(c)
+    if kind == 3:
+        return bytes(c[: len(c) - 1 - int(rng.integers(min(len(c), int(seq.lit_len[-1]) + 2)))])
+    if kind == 4:
+        for i in rng.integers(0, len(c), 3):
+            c[i] = int(rng.integers(256))
+        return bytes(c)
+    if kind == 5:
+        return b""
+    return bytes(rng.integers(0, 256, int(rng.integers(1, 40)), dtype=np.uint8))
+
+
+def test_resident_kernel_seeded_fuzz(card):
+    rng = np.random.default_rng(1414)
+    soup = word_soup(400000, seed=41)
+    inputs = list(block_inputs().values())
+    payloads = []
+    for k in range(320):
+        if k % 3:
+            o = int(rng.integers(0, 300000))
+            data = soup[o : o + int(rng.integers(20, 60000))]
+        else:
+            data = inputs[k % len(inputs)][: int(rng.integers(20, 60000))]
+        payloads.append(_corrupted(native.compress_block(data), rng))
+    rows, lens = _rows(payloads, garbage=0xAB)
+    _kernel_equals_plain(card, rows[:160], lens[:160], out_pad=65536, nseq_pad=24576)
+    # a short table (the last kept match runs on) and a low capacity
+    _kernel_equals_plain(card, rows[160:], lens[160:], out_pad=65536, nseq_pad=300, capacity=4096)
+    # lengths past the row, and a row of garbage
+    lens2 = lens[:8].copy()
+    lens2[::2] = rows.shape[1] + 5
+    _kernel_equals_plain(card, rows[:8], lens2, out_pad=65536, nseq_pad=24576)
+
+
+def test_decode_batch_group_is_one_launch_and_no_host_read(card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from lz4_flex_tpu_torch.parallel import pipeline as PP
+
+    rows, lens, text = block_rows(32, seed=16)
+    u8, n = torch.from_numpy(rows).to(card), torch.from_numpy(lens).to(card)
+    PP._decode_batch(u8, n, out_pad=65536, nseq_pad=24576)
+    torch.cuda.synchronize()
+    t0, before = time.time_ns(), dict(R.stats)
+    with profile(activities=[ProfilerActivity.CPU]):
+        out, _, _ = PP._decode_batch(u8, n, out_pad=65536, nseq_pad=24576)
+    torch.cuda.synchronize()
+    names = [r[0] for r in trace.records(t0)]
+    assert names.count("resident.step") == 1 and "resident.sync" not in names
+    assert R.stats["resident_launches"] == before["resident_launches"] + 1
+    assert R.stats["resident_rows"] == before["resident_rows"] + 32
+    assert out.cpu().numpy().tobytes() == text

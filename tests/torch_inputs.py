@@ -9,12 +9,17 @@ self-contained corpus.
 
 from __future__ import annotations
 
+import itertools
 import random
 
 import numpy as np
 
 
-def word_soup(n: int, seed: int = 1, vocab: int = 2000) -> bytes:
+def word_soup(n: int, seed: int = 1, vocab: int = 2000, zipf: float | None = None) -> bytes:
+    """``n`` bytes of words of 2-10 lowercase letters joined by spaces, drawn
+    from ``vocab`` words uniformly or, with ``zipf``, word r (from 1) with
+    probability proportional to 1 / r**zipf (the benchmark's batch cell has
+    vocab 50,000 and zipf 1.0)."""
     rng = random.Random(seed)
     words = [
         "".join(chr(rng.randrange(97, 123)) for _ in range(rng.randrange(2, 11)))
@@ -22,11 +27,33 @@ def word_soup(n: int, seed: int = 1, vocab: int = 2000) -> bytes:
     ]
     rng = random.Random(seed ^ 0xD1C8E25)
     out, size = [], 0
+    if zipf is not None:
+        cum = list(itertools.accumulate(r ** -zipf for r in range(1, vocab + 1)))
+        while size < n:
+            picks = rng.choices(words, cum_weights=cum, k=(n - size) // 6 + 64)
+            out += picks
+            size += sum(map(len, picks)) + len(picks)
     while size < n:
         w = words[rng.randrange(len(words))]
         out.append(w)
         size += len(w) + 1
     return " ".join(out).encode()[:n]
+
+
+def block_rows(nrows: int, seed: int, block: int = 65536, width: int = 65536):
+    """(rows (nrows, width) uint8, lengths (nrows,) int32, the text): ``nrows``
+    blocks of Zipf word soup (the batch cell's vocabulary and exponent), each
+    compressed alone by the native encoder into a zero-padded payload row."""
+    from lz4_flex_tpu_torch import native
+
+    text = word_soup(nrows * block, seed, vocab=50_000, zipf=1.0)
+    rows = np.zeros((nrows, width), np.uint8)
+    lens = np.zeros(nrows, np.int32)
+    for i in range(nrows):
+        comp = native.compress_block(text[i * block : (i + 1) * block])
+        rows[i, : len(comp)] = np.frombuffer(comp, np.uint8)
+        lens[i] = len(comp)
+    return rows, lens, text
 
 
 def incompressible(n: int, seed: int = 7) -> bytes:
