@@ -38,6 +38,7 @@ from ..spec.constants import (
     MIN_FRAME_INFO_SIZE,
     WINDOW_SIZE,
 )
+from ..utils import trace
 from ..utils.checksum import XxHash32, xxh32
 from . import errors
 from .device import _is_any_magic
@@ -168,7 +169,9 @@ class FrameDecoder(io.RawIOBase):
 
     def _check_block_checksum(self, data: bytes) -> None:
         (expected,) = struct.unpack("<I", self._read_exact(4))
-        if xxh32(data, 0) != expected:
+        with trace.span("frame.xxh"):
+            got = xxh32(data, 0)
+        if got != expected:
             raise errors.BlockChecksumError()
 
     def _decompress_block(self, comp: bytes, max_block_size: int) -> bytes:
@@ -183,7 +186,13 @@ class FrameDecoder(io.RawIOBase):
             raise errors.ContentLengthError(fi.content_size, self._content_len)
         if fi.content_checksum:
             (expected,) = struct.unpack("<I", self._read_exact(4))
-            if self._content_hasher.digest() != expected:
+            with trace.span("frame.xxh"):
+                got = self._content_hasher.digest()
+            if self._engine == "device":
+                from ..ops import ringdecode
+
+                ringdecode.stats["content_checksums"] += 1
+            if got != expected:
                 raise errors.ContentChecksumError()
         self._frame_info = None
 
@@ -426,7 +435,8 @@ class FrameDecoder(io.RawIOBase):
         self._out_pos = 0
         self._content_len += len(out)
         if fi.content_checksum:
-            self._content_hasher.write(out)
+            with trace.span("frame.xxh"):
+                self._content_hasher.write(out)
         if fi.block_mode == BlockMode.Linked:
             self._window = (self._window + out)[-WINDOW_SIZE:]
 

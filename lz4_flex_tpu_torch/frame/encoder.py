@@ -27,6 +27,7 @@ import numpy as np
 
 from .. import native as _native
 from ..spec.constants import LZ4F_LEGACY_MAGIC_NUMBER, WINDOW_SIZE
+from ..utils import trace
 from ..utils.checksum import XxHash32, xxh32
 from . import errors
 from .header import BlockInfo, BlockInfoKind, BlockMode, BlockSize, FrameInfo
@@ -127,7 +128,9 @@ class FrameEncoder:
             raise errors.ContentLengthError(self._frame_info.content_size, self._content_len)
         self._w.write(BlockInfo(BlockInfoKind.EndMark).write())
         if self._frame_info.content_checksum:
-            self._w.write(struct.pack("<I", self._content_hasher.digest()))
+            with trace.span("frame.xxh"):
+                digest = self._content_hasher.digest()
+            self._w.write(struct.pack("<I", digest))
 
     def _compress_pending_block(self, block: bytes) -> bytes:
         """Compress one block with the carried window and table."""
@@ -158,9 +161,12 @@ class FrameEncoder:
         self._w.write(info.write())
         self._w.write(payload)
         if fi.block_checksums:
-            self._w.write(struct.pack("<I", xxh32(payload, 0)))
+            with trace.span("frame.xxh"):
+                digest = xxh32(payload, 0)
+            self._w.write(struct.pack("<I", digest))
         if fi.content_checksum:
-            self._content_hasher.write(raw)
+            with trace.span("frame.xxh"):
+                self._content_hasher.write(raw)
 
     def _write_block(self) -> None:
         max_block_size = self._frame_info.block_size.get_size()

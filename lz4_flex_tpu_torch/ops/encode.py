@@ -65,6 +65,7 @@ from .. import native as _native
 from ..block import compress_with_dict
 from ..parallel.executor import plan_executor
 from ..spec.constants import WINDOW_SIZE, get_maximum_output_size
+from ..utils import trace
 from . import packing
 from .ringdecode import resolve_device
 
@@ -83,11 +84,13 @@ _M32 = 0xFFFFFFFF
 #: Public counters: ``candidate_calls`` counts calls of ``candidates_core``,
 #: ``plane_quads`` dispatches of ``_best_plane_quad`` (each computes up to
 #: ``_PLANE_ROWS`` chunk rows' planes), ``match_calls`` and ``emit_calls``
-#: calls of ``match_core`` and ``emit_core`` (each over a batch of rows), and
+#: calls of ``match_core`` and ``emit_core`` (each over a batch of rows),
 #: ``verify_fallbacks`` the device encodes that failed the host verify walk
-#: and were replaced by the host encoder's bytes.
+#: and were replaced by the host encoder's bytes, ``hybrid_blocks`` the
+#: non-empty blocks of ``compress_block_hybrid`` and ``hybrid_chunks`` the
+#: chunk rows its streaming path walked.
 stats = {"candidate_calls": 0, "plane_quads": 0, "match_calls": 0, "emit_calls": 0,
-         "verify_fallbacks": 0}
+         "verify_fallbacks": 0, "hybrid_blocks": 0, "hybrid_chunks": 0}
 
 
 def _shift_read(arr: torch.Tensor, k: int) -> torch.Tensor:
@@ -204,23 +207,27 @@ def _host_planes(gpad: torch.Tensor, groups):
     group q+1's planes, and the caller's walks of group q overlap both."""
     if gpad.device.type != "cuda":
         for starts in groups:
-            yield _best_plane_quad(gpad, starts).numpy().view(np.uint16)
+            with trace.span("enc.planes"):
+                planes = _best_plane_quad(gpad, starts).numpy().view(np.uint16)
+            yield planes
         return
     main = torch.cuda.current_stream(gpad.device)
     side = torch.cuda.Stream(gpad.device)
     staged = []
     for starts in groups:
-        quad = _best_plane_quad(gpad, starts)
-        host = torch.empty(quad.shape, dtype=quad.dtype, pin_memory=True)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            host.copy_(quad, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        quad.record_stream(side)
+        with trace.span("enc.planes"):
+            quad = _best_plane_quad(gpad, starts)
+            host = torch.empty(quad.shape, dtype=quad.dtype, pin_memory=True)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                host.copy_(quad, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
+            quad.record_stream(side)
         staged.append((host, done))
     for host, done in staged:
-        done.synchronize()
+        with trace.span("enc.plane_wait"):
+            done.synchronize()
         yield host.numpy().view(np.uint16)
 
 
@@ -239,17 +246,19 @@ def compress_block_hybrid(data, ext_dict=b"", *, device=None) -> bytes:
     n_data = int(src.shape[0])
     if n_data == 0:
         return bytes([0x00])
-    G = np.concatenate([dic, src]) if dlen else src
-    g_len = G.shape[0]
-    if g_len + 4 > _CHUNK_W:
-        return _compress_hybrid_streaming(G, g_len, dlen, n_data, dev)
+    stats["hybrid_blocks"] += 1
+    with trace.span("enc.hybrid"):
+        G = np.concatenate([dic, src]) if dlen else src
+        g_len = G.shape[0]
+        if g_len + 4 > _CHUNK_W:
+            return _compress_hybrid_streaming(G, g_len, dlen, n_data, dev)
 
-    pad = packing.size_bucket(max(g_len + 4, 8))
-    d12, d34 = candidates_core(_upload(packing.pad_to(G, pad), dev))
-    return _native.compress_with_candidates(
-        G, dlen, d12.cpu().numpy().view(np.uint32)[None], d34.cpu().numpy().view(np.uint32)[None],
-        np.zeros(1, np.int64), np.array([dlen], np.int32),
-    )
+        pad = packing.size_bucket(max(g_len + 4, 8))
+        d12, d34 = candidates_core(_upload(packing.pad_to(G, pad), dev))
+        return _native.compress_with_candidates(
+            G, dlen, d12.cpu().numpy().view(np.uint32)[None], d34.cpu().numpy().view(np.uint32)[None],
+            np.zeros(1, np.int64), np.array([dlen], np.int32),
+        )
 
 
 class _ChunkWalks:
@@ -271,21 +280,23 @@ class _ChunkWalks:
         self.chunk_start = dlen + np.arange(nrows, dtype=np.int64) * _CHUNK_C
         self._futures = []
 
-    def _walk(self, i: int, plane: np.ndarray) -> None:
+    def _walk(self, i: int, plane: np.ndarray, traced: bool) -> None:
         c = self._CCAP
-        self.wire_len[i], self.tails[i] = _native.hybrid_walk_chunk(
-            self.G, plane, self.starts[i], int(self.chunk_start[i]), self.limits[i],
-            _PLANE_POOL.bit_length() - 1, self.wirebuf[i * c : (i + 1) * c],
-            i == len(self.starts) - 1,
-        )
+        with trace.span("enc.walk", on=traced):
+            self.wire_len[i], self.tails[i] = _native.hybrid_walk_chunk(
+                self.G, plane, self.starts[i], int(self.chunk_start[i]), self.limits[i],
+                _PLANE_POOL.bit_length() - 1, self.wirebuf[i * c : (i + 1) * c],
+                i == len(self.starts) - 1,
+            )
 
     def submit(self, first_row: int, planes: np.ndarray) -> None:
         """Start the walks of chunk rows ``first_row``, ... on the pool,
         ``planes[k]`` being row ``first_row + k``'s plane (the padding rows
         of a last group are skipped)."""
-        pool = plan_executor()
+        pool, traced = plan_executor(), trace.enabled()
         for k in range(min(len(planes), len(self.starts) - first_row)):
-            self._futures.append(pool.submit(self._walk, first_row + k, planes[k]))
+            stats["hybrid_chunks"] += 1
+            self._futures.append(pool.submit(self._walk, first_row + k, planes[k], traced))
 
     def wait(self) -> None:
         for f in self._futures:
@@ -293,9 +304,10 @@ class _ChunkWalks:
 
     def stitch(self) -> bytes:
         self.wait()
-        return _native.hybrid_stitch(self.G, self.wirebuf, self.wire_off, self.wire_len,
-                                     self.chunk_start, self.tails,
-                                     get_maximum_output_size(self.n_data))
+        with trace.span("enc.stitch"):
+            return _native.hybrid_stitch(self.G, self.wirebuf, self.wire_off, self.wire_len,
+                                         self.chunk_start, self.tails,
+                                         get_maximum_output_size(self.n_data))
 
 
 def _compress_hybrid_streaming(G: np.ndarray, g_len: int, dlen: int, n_data: int,

@@ -82,11 +82,13 @@ PLAN_OVERFLOW_CODES = (-100, -102, -103, -104)
 #: :func:`ring_plan_device_tensors` hands to the device. ``resident_launches``
 #: counts launches of the resident kernel (ops/decode.py:resident_decode_kernel,
 #: one a group of rows in ``_decode_batch``) and ``resident_rows`` the rows
-#: they decoded.
+#: they decoded. ``content_checksums`` counts the frames whose content
+#: checksum a device decode checked against the decoded bytes
+#: (frame/device.py, and frame/decoder.py's device engine).
 stats = {"kernel_launches": 0, "checksum_launches": 0, "grouped_launches": 0,
          "overflow_fused_decodes": 0, "overflow_splits": 0, "overflow_sharded_decodes": 0,
          "plan_builds": 0, "plan_pool_misses": 0, "upload_bytes": 0,
-         "resident_launches": 0, "resident_rows": 0}
+         "resident_launches": 0, "resident_rows": 0, "content_checksums": 0}
 
 
 def check_tile_rows(tile_rows: int) -> None:

@@ -3,7 +3,9 @@
 ``request(name)`` marks one call of an entry point and ``span(name)`` one
 layer's work inside it. Tracing is on exactly while a profiler records
 (``torch.autograd._profiler_enabled()``); there is no other switch. Off, a
-span is one check and a shared no-op context. On, a span is a host range of
+span is one check and a shared no-op context. That state belongs to the
+thread that started the profiler, so work handed to a pool thread passes
+:func:`enabled`, read where it was submitted, as a span's ``on``. On, a span is a host range of
 the profiler named ``"lz4:" + name``, so its timeline shows it above the ops
 that launched kernels inside it, and a record kept in memory (the newest
 ``CAPACITY``), read with :func:`records`:
@@ -11,7 +13,7 @@ that launched kernels inside it, and a record kept in memory (the newest
     (name, request_id, parent_index, thread_id, t0_ns, t1_ns)
 
 ``request_id`` is that of the innermost request open on the span's thread
-(0 outside any request); ``parent_index`` is the position, in the same list,
+(-1 outside any request, as on a pool thread); ``parent_index`` is the position, in the same list,
 of the span that encloses it on its thread, or -1; ``thread_id`` is
 ``threading.get_ident()``. Times are ``time.time_ns()``, the clock of the
 profiler's own events, read just outside the range, so a record holds its
@@ -45,9 +47,16 @@ _seq = itertools.count()
 _requests = itertools.count(1)
 
 
-def span(name: str):
-    """A context manager marking one layer's work as the span ``name``."""
-    return _recorded(name, False) if _enabled() else _OFF
+def enabled() -> bool:
+    """Whether spans are recorded on this thread now."""
+    return _enabled()
+
+
+def span(name: str, on: bool | None = None):
+    """A context manager marking one layer's work as the span ``name``;
+    ``on`` stands for the check on a thread that did not start the
+    profiler (see the module's docstring)."""
+    return _recorded(name, False) if (_enabled() if on is None else on) else _OFF
 
 
 def request(name: str):
@@ -61,7 +70,7 @@ def _recorded(name: str, root: bool):
     stack = getattr(_open, "stack", None)
     if stack is None:
         stack = _open.stack = []
-    parent, rid = stack[-1] if stack else (-1, 0)
+    parent, rid = stack[-1] if stack else (-1, -1)
     if root:
         rid = next(_requests)
     seq = next(_seq)
