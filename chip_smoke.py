@@ -79,8 +79,9 @@ Phases (any failure raises and the exit code is not 0):
    dictionary, ``decompress_frame_device`` and a one-block
    ``FrameDecoder`` batch must each decode byte-exact through one fused
    decode, with no K1 launch and the host decoder refusing every call.
-9. All-device encode (torch ops): ``match_core``, ``emit_core``,
-   ``encode_chunk_core``, ``_match_quad`` and ``_merge_emit`` on the card
+9. All-device encode: ``match_core``, ``emit_core``, ``encode_chunk_core``
+   (on the card the kernel ``csrc/encode_rows.cu``), ``_match_quad`` and
+   ``_merge_emit`` on the card
    held bit-equal to the same functions on the CPU, on the arguments they
    were called with (the first 256 KiB of each of phase 2's blocks as one
    chunk and as 64 KiB frame blocks; the first dispatch of the default
@@ -94,7 +95,11 @@ Phases (any failure raises and the exit code is not 0):
    on the whole soup (resident: 23 chunk rows, 6 quads) and on 300 KiB with
    a dictionary, and ``encode_step`` on 32 rows of 98,304 bytes; each with
    the encode counters set to 0 just before it: the device programs ran,
-   no candidate plane ran, and the verify guard never fell back. Stage
+   no candidate plane ran, and the verify guard never fell back. The
+   encode kernel on the default frame's first dispatch (32 rows of 98,304
+   bytes) against its plain version ``encode_chunk_core_reference`` on the
+   same tensors: byte-exact, timed beside it, and one kernel event a call
+   over 20 calls under one profiler window. Stage
    times, end to end beside ``compress_block_hybrid`` and
    ``native.compress_block``, peak device memory, device busy share and
    top kernels.
@@ -1079,7 +1084,7 @@ def main() -> None:
     print(f"  phase 8 took {time.perf_counter() - t_phase8:.1f} s", flush=True)
 
     # ---- 9. all-device encode --------------------------------------------------------
-    print(f"phase 9: all-device encode (torch ops; tolerance: bit-exact against the same "
+    print(f"phase 9: all-device encode (the encode kernel and torch ops; tolerance: bit-exact against the same "
           f"functions on the CPU, byte-exact against the data) [{card}]", flush=True)
     t_phase9 = time.perf_counter()
 
@@ -1265,14 +1270,36 @@ def main() -> None:
             moved += len(a[1]) * E._CHUNK_W - a[0].numel()
         return moved / FP.HBM_BYTES_PER_S * 1e3
 
-    prog_ms = {name: timed(first_default, name) for name in ("match_core", "emit_core",
-                                                             "encode_chunk_core")}
+    # On the card encode_chunk_core is one launch of the kernel
+    # csrc/encode_rows.cu: its plain version (match_core, then emit_core) on
+    # the first dispatch's 32 rows, held to it byte for byte and timed
+    # beside it; 20 kernel calls under one profiler window (a one-call
+    # window may miss a kernel launched from its library).
+    a32, kw32, got32 = first_default["encode_chunk_core"]
+    main_calls = dict(prog_calls)
+    want32, first_plain = recorded(lambda: E.encode_chunk_core_reference(*a32, **kw32))
+    prog_calls.update(main_calls)
+    plain_err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got32, want32))
+    if plain_err:
+        raise SystemExit("chip_smoke: the encode kernel differs from its plain version")
+    plain_ms = kernel_ms(lambda: E.encode_chunk_core_reference(*a32, **kw32), iters=5, warmup=1)
+    seen = device_event_names(lambda: E.encode_chunk_core(*a32, **kw32), 20)
+    enc_events = sum(v for k, v in seen.items() if "encode_rows_kernel" in k)
+    if sum(seen.values()) != enc_events or not 10 <= enc_events <= 20:
+        raise SystemExit(f"chip_smoke: encode_chunk_core is not one kernel a call: {dict(seen)}")
+    prog_ms = {name: timed(first_plain, name) for name in ("match_core", "emit_core")}
+    prog_ms["encode_chunk_core"] = timed(first_default, "encode_chunk_core")
     prog_ms.update({name: timed(first_res, name) for name in ("_match_quad", "_merge_emit")})
-    prog_bound = {name: bound(first_default, name) for name in ("match_core", "emit_core",
-                                                                "encode_chunk_core")}
+    prog_bound = {name: bound(first_plain, name) for name in ("match_core", "emit_core")}
+    prog_bound["encode_chunk_core"] = bound(first_default, "encode_chunk_core")
     prog_bound.update({name: bound(first_res, name) for name in ("_match_quad", "_merge_emit")})
     for name in programs:
-        print(f"  device program {name:18s} {prog_ms[name]:9.3f} ms, bytes bound "
+        extra = ""
+        if name == "encode_chunk_core":
+            extra = (f" (kernel csrc/encode_rows.cu on {a32[0].shape[0]} rows of "
+                     f"{a32[0].shape[1]:,}; plain version {plain_ms:.3f} ms, byte-exact; "
+                     f"{enc_events} kernel events of 20 calls, no other)")
+        print(f"  device program {name:18s} {prog_ms[name]:9.3f} ms{extra}, bytes bound "
               f"{prog_bound[name]:.5f} ms, calls on the main paths {prog_calls[name]}, "
               f"max_abs_err {prog_err[name]} [{card}]", flush=True)
     out32 = first_default["encode_chunk_core"][2][0]
@@ -1287,8 +1314,8 @@ def main() -> None:
     print(f"  stages, 10 MiB in 64 KiB blocks: staging {stage_ms:.3f} ms, pinned upload of one "
           f"group {up_ms:.3f} ms, "
           f"{len(lens64)} rows in {-(-len(lens64) // PP._ENCODE_ROWS)} dispatches of "
-          f"{prog_ms['encode_chunk_core']:.3f} ms (match {prog_ms['match_core']:.3f}, emit "
-          f"{prog_ms['emit_core']:.3f}), payload read of one dispatch {read_ms:.3f} ms, verify "
+          f"{prog_ms['encode_chunk_core']:.3f} ms (plain version {plain_ms:.3f}: match "
+          f"{prog_ms['match_core']:.3f}, emit {prog_ms['emit_core']:.3f}), payload read of one dispatch {read_ms:.3f} ms, verify "
           f"walks {verify_ms:.3f} ms [{card}]", flush=True)
     print(f"  stages, 10 MiB resident: {quads} quads of {prog_ms['_match_quad']:.3f} ms, merge "
           f"and emission {prog_ms['_merge_emit']:.3f} ms [{card}]", flush=True)
@@ -1680,6 +1707,13 @@ def main() -> None:
          "ms": k_ms["K1c G=8"], "plain_ms": plain_g8, "bound_ms": grouped[8]["bound"],
          "bound_by": "bytes", "library_ms": None},
     ]
+    # The all-device encode kernel on the default frame's first dispatch (phase 9).
+    kernels.append({
+        "name": "encode_rows", "route": "cuda", "source": "lz4_flex_tpu_torch/csrc/encode_rows.cu",
+        "replaces": "lz4_flex_tpu/ops/encode.py:427", "launches": prog_calls["encode_chunk_core"],
+        "max_abs_err": max(plain_err, prog_err["encode_chunk_core"]),
+        "ms": prog_ms["encode_chunk_core"], "plain_ms": plain_ms,
+        "bound_ms": prog_bound["encode_chunk_core"], "bound_by": "bytes", "library_ms": None})
     # The resident kernel at the batch cell's shape (phase 8).
     for b, r in resident.items():
         kernels.append({

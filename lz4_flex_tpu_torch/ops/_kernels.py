@@ -8,6 +8,7 @@ launch raises.
 
   ring_decode      K1, the ring decoder, on one plan or (K1c) several (ops/ringdecode.py)
   resident_decode  the resident decode of a batch of payload rows (ops/decode.py)
+  encode_rows      the all-device encode of a batch of block rows (ops/encode.py)
   fire_probe       K1's fire loop in variants (experiments/fire_probe.py)
   gather_probe     shared-memory gather forms (experiments/gather_probe.py)
 """
@@ -26,6 +27,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _HEADERS = {
     "ring_decode": ("ring_decode.cuh",),
     "resident_decode": (),
+    "encode_rows": (),
     "fire_probe": ("ring_decode.cuh",),
     "gather_probe": (),
 }
@@ -43,6 +45,12 @@ _SIGNATURES = {
     "resident_decode": {
         "tlz4_resident_decode": (_ci, [_vp, ctypes.c_longlong, _ci, _vp] + [_ci] * 4 + [_vp] * 4),
         "tlz4_resident_error_string": (ctypes.c_char_p, [_ci]),
+    },
+    "encode_rows": {
+        "tlz4_encode_rows": (_ci, [_vp] * 4 + [_ci] * 6 + [_vp, ctypes.c_longlong, _vp, _ci]
+                             + [_vp] * 3),
+        "tlz4_encode_rows_ranks": (_ci, [_ci]),
+        "tlz4_encode_rows_error_string": (ctypes.c_char_p, [_ci]),
     },
     "fire_probe": {
         "tlz4_fire_probe": (_ci, [_ci] + [_vp] * 6 + [_ci] * 3 + [_vp]),
@@ -138,3 +146,30 @@ def launch_resident_decode(u8, clen, out, total, flags, *, nseq_pad: int, capaci
         nseq_pad, capacity, out.data_ptr(), total.data_ptr(), flags.data_ptr(), stream,
     )
     check_launch(err, "resident_decode", rl.tlz4_resident_error_string)
+
+
+def encode_rows_ranks(nrows: int) -> int:
+    """CTAs a row (one cluster) for a launch of the all-device encode over
+    ``nrows`` rows: the most, up to 4, at which every row's cluster is
+    resident on the card at once, else 1."""
+    return lib("encode_rows").tlz4_encode_rows_ranks(nrows)
+
+
+def launch_encode_rows(u8, words, d, n, out, total, scratch, tables, *, levels: int,
+                       nseq_pad: int, stream: int) -> None:
+    """Launch the all-device encode on ``stream`` over the (B, width) rows
+    ``u8`` (dictionary ++ data, the match source), their (B, width / 4)
+    int32 ``words`` (the literal source) and (B,) int32 dictionary and
+    dictionary + data lengths ``d``, ``n``, into ``out`` (B, comp_pad) uint8
+    and ``total`` (B,) int32, with the (B, row_ints) int32 ``scratch`` and
+    the (B, ranks, 2^bits) int64 hash ``tables``, a cluster of ``ranks``
+    CTAs a row. The tensors are already checked by the caller. Raises
+    RuntimeError when the launch is refused."""
+    el = lib("encode_rows")
+    err = el.tlz4_encode_rows(
+        u8.data_ptr(), words.data_ptr(), d.data_ptr(), n.data_ptr(), u8.shape[0],
+        tables.shape[1], u8.shape[1], levels, out.shape[1], nseq_pad, scratch.data_ptr(),
+        scratch.shape[1], tables.data_ptr(), tables.shape[2].bit_length() - 1, out.data_ptr(),
+        total.data_ptr(), stream,
+    )
+    check_launch(err, "encode_rows", el.tlz4_encode_rows_error_string)

@@ -29,7 +29,11 @@ functions; the JAX package has no Pallas kernel here):
                      (hybrid streaming path, one row per 512 KiB chunk)
   match_core         stages 1-4 of the all-device encoder, per chunk row
   emit_core          stage 5: a sequence table to wire bytes, per row
-  encode_chunk_core  both, for independent rows (the frame blocks)
+  encode_chunk_core  both, for independent rows (the frame blocks): on the
+                     card one launch of the hand-written kernel
+                     ``csrc/encode_rows.cu``, bit-equal to its plain version
+                     ``encode_chunk_core_reference`` (these torch ops),
+                     which CPU tensors take
   _merge_emit        the resident path's stacked per-chunk tables merged
                      and emitted in one pass
 
@@ -84,13 +88,17 @@ _M32 = 0xFFFFFFFF
 #: Public counters: ``candidate_calls`` counts calls of ``candidates_core``,
 #: ``plane_quads`` dispatches of ``_best_plane_quad`` (each computes up to
 #: ``_PLANE_ROWS`` chunk rows' planes), ``match_calls`` and ``emit_calls``
-#: calls of ``match_core`` and ``emit_core`` (each over a batch of rows),
-#: ``verify_fallbacks`` the device encodes that failed the host verify walk
-#: and were replaced by the host encoder's bytes, ``hybrid_blocks`` the
-#: non-empty blocks of ``compress_block_hybrid`` and ``hybrid_chunks`` the
-#: chunk rows its streaming path walked.
+#: dispatches of the all-device encoder's match and emit stages over a batch
+#: of rows, whichever implementation ran (``match_core`` and ``emit_core``,
+#: or one launch of the kernel, which counts one of each),
+#: ``encode_launches`` the kernel's launches and ``encode_rows`` the rows
+#: they encoded, ``verify_fallbacks`` the device encodes that failed the host
+#: verify walk and were replaced by the host encoder's bytes,
+#: ``hybrid_blocks`` the non-empty blocks of ``compress_block_hybrid`` and
+#: ``hybrid_chunks`` the chunk rows its streaming path walked.
 stats = {"candidate_calls": 0, "plane_quads": 0, "match_calls": 0, "emit_calls": 0,
-         "verify_fallbacks": 0, "hybrid_blocks": 0, "hybrid_chunks": 0}
+         "encode_launches": 0, "encode_rows": 0, "verify_fallbacks": 0, "hybrid_blocks": 0,
+         "hybrid_chunks": 0}
 
 
 def _shift_read(arr: torch.Tensor, k: int) -> torch.Tensor:
@@ -554,7 +562,25 @@ def encode_chunk_core(u8, words, d, n, *, levels: int, comp_pad: int, nseq_pad: 
     """Independent rows encoded whole (match, final literal record,
     emission) in chunk coordinates: (B, pad) uint8 rows, their (B, pad / 4)
     int32 words, and (B,) dictionary and dictionary + data lengths ->
-    ((B, comp_pad) uint8 wire bytes, (B,) int32 lengths)."""
+    ((B, comp_pad) uint8 wire bytes, (B,) int32 lengths).
+
+    On CUDA rows this is one launch of the kernel ``csrc/encode_rows.cu``
+    (:func:`encode_rows_kernel`); CPU rows take the torch ops of
+    :func:`encode_chunk_core_reference`. Both give the same bytes."""
+    if u8.device.type == "cuda":
+        stats["match_calls"] += 1
+        stats["emit_calls"] += 1
+        lens = [t.to(device=u8.device, dtype=torch.int32).reshape(-1).contiguous() for t in (d, n)]
+        return encode_rows_kernel(u8, words, *lens, levels=levels, comp_pad=comp_pad,
+                                  nseq_pad=nseq_pad)
+    return encode_chunk_core_reference(u8, words, d, n, levels=levels, comp_pad=comp_pad,
+                                       nseq_pad=nseq_pad)
+
+
+def encode_chunk_core_reference(u8, words, d, n, *, levels: int, comp_pad: int, nseq_pad: int):
+    """The plain version of :func:`encode_chunk_core`: ``match_core``, the
+    trailing literal run in slot nm, and ``emit_core``, torch ops on the
+    rows' device."""
     ll, ls, off, ml, nm, last_end = match_core(u8, d, n, levels=levels, nseq_pad=nseq_pad)
     B = u8.shape[0]
     nm_col = nm.to(torch.int64).reshape(B, 1)
@@ -567,6 +593,60 @@ def encode_chunk_core(u8, words, d, n, *, levels: int, comp_pad: int, nseq_pad: 
     seq_i = torch.arange(ll.shape[1], dtype=torch.int64, device=u8.device)
     s_match = (seq_i < nm_col).to(torch.int32)
     return emit_core(words, ll, ls, off, mlc, s_match, nm + 1, comp_pad=comp_pad)
+
+
+def encode_rows_kernel(u8, words, d, n, *, levels: int, comp_pad: int, nseq_pad: int):
+    """The all-device encode as one launch of the kernel
+    ``csrc/encode_rows.cu`` on the current stream, a cluster of up to 4 CTAs
+    a row: ``u8`` (B, width) uint8 CUDA rows (dictionary ++ data, zero
+    padded), ``words`` their (B, width / 4) int32 words (the literals'
+    source), ``d`` and ``n`` the (B,) int32 dictionary and dictionary + data
+    lengths, all contiguous on one card. Returns what
+    :func:`encode_chunk_core_reference` returns, byte for byte, in tensors
+    made with ``torch.empty`` that the kernel fills; its scratch is made here
+    too (the fingerprint planes, the chain and the tables: 52 bytes a
+    position at 12 levels, and the CTAs' hash tables, 16-32). No host read.
+    Raises ValueError on tensors or sizes the kernel does not take."""
+    if u8.dtype != torch.uint8 or u8.dim() != 2:
+        raise ValueError(f"rows must be a 2-D uint8 tensor, got {u8.dtype} {tuple(u8.shape)}")
+    B, width = u8.shape
+    if not 0 < width < 2**28 or width % 4:
+        raise ValueError(f"row width must be a multiple of 4 in (0, 2**28), got {width}")
+    if words.dtype != torch.int32 or tuple(words.shape) != (B, width // 4):
+        raise ValueError(f"words must be int32 ({B}, {width // 4}), got {words.dtype} "
+                         f"{tuple(words.shape)}")
+    for name, t in (("dictionary lengths", d), ("lengths", n)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B,):
+            raise ValueError(f"{name} must be int32 ({B},), got {t.dtype} {tuple(t.shape)}")
+    if not all(t.is_contiguous() for t in (u8, words, d, n)):
+        raise ValueError("the rows, words and lengths must be contiguous")
+    if not 2 <= levels <= 24 or not 0 < comp_pad < 2**31 or not 0 < nseq_pad < 2**28:
+        raise ValueError(f"levels must be in [2, 24], comp_pad in (0, 2**31) and nseq_pad in "
+                         f"(0, 2**28), got {levels}, {comp_pad} and {nseq_pad}")
+    if u8.device.type != "cuda" or any(t.device != u8.device for t in (words, d, n)):
+        raise ValueError(f"the encode kernel takes its tensors on one CUDA card, got "
+                         f"{[str(t.device) for t in (u8, words, d, n)]} (CPU tensors take "
+                         "encode_chunk_core_reference)")
+    dev = u8.device
+    out = torch.empty((B, comp_pad), dtype=torch.uint8, device=dev)
+    total = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        from ._kernels import encode_rows_ranks, launch_encode_rows
+
+        plane = width + 4  # a position plane and its sentinel slot
+        row_ints = (3 + max(levels - 2, 4)) * plane + 5 * nseq_pad + 2
+        scratch = torch.empty((B, row_ints), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            ranks = encode_rows_ranks(B)
+            # a CTA's hash table holds the words of its segment, at most half full
+            segment = width // ranks + 1024
+            tables = torch.empty((B, ranks, 1 << max(12, (2 * segment - 1).bit_length())),
+                                 dtype=torch.int64, device=dev)
+            launch_encode_rows(u8, words, d, n, out, total, scratch, tables, levels=levels,
+                               nseq_pad=nseq_pad, stream=torch.cuda.current_stream().cuda_stream)
+        stats["encode_launches"] += 1
+        stats["encode_rows"] += B
+    return out, total
 
 
 _ROW_BUCKETS = [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256]

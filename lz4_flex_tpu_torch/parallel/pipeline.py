@@ -64,12 +64,14 @@ from .mesh import (
     process_rank_and_world,
 )
 
-# Rows per encode dispatch. One dispatch of the all-device encoder is ~1,700
-# kernel launches whatever its row count, so rows are batched; its
-# temporaries take ~250 bytes a position, so 32 rows of 256 KiB blocks
-# (393,216 positions each) stay near 3 GB of device memory. encode_blocks
-# uploads, encodes and reads back one such group at a time, so a frame's
-# device memory is bounded by this constant, not by its input.
+# Rows per encode dispatch. On the card a dispatch is one launch of the
+# encode kernel (a cluster of CTAs a row; its scratch ~85 bytes a position,
+# so 32 rows of 256 KiB blocks take ~1 GB). The plain version, the torch ops
+# CPU rows take, is ~1,700 kernel launches a dispatch whatever its row count,
+# so rows are batched; its temporaries take ~250 bytes a position, so 32 rows
+# of 256 KiB blocks (393,216 positions each) stay near 3 GB of device memory.
+# encode_blocks uploads, encodes and reads back one such group at a time, so
+# a frame's device memory is bounded by this constant, not by its input.
 _ENCODE_ROWS = 32
 
 # Positions per resident-decode dispatch (``_decode_batch``): rows times the

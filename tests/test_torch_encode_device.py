@@ -41,7 +41,7 @@ from lz4_flex_tpu_torch.ops import packing as PK
 from lz4_flex_tpu_torch.parallel import pipeline as PP
 from lz4_flex_tpu_torch.spec.constants import get_maximum_output_size
 
-from .torch_inputs import incompressible, word_soup
+from .torch_inputs import collision_input, incompressible, word_soup
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -363,17 +363,8 @@ def test_guard_falls_back_to_the_host_encoder(monkeypatch):
         prev, src = (prev + src[:blen])[-65536:], src[blen:]
 
 
-def _collision_input() -> bytes:
-    """20,322 bytes of a word soup on which the all-device encoder meets a
-    real fingerprint collision: two unequal 1024-byte spans (both 512-byte
-    halves unequal) share one level-10 fingerprint, so a 9-byte match is
-    stretched to 1028 bytes."""
-    base = 458748 - 65536
-    return word_soup(1200000, seed=41)[base + 46379 : base + 66701]
-
-
 def test_guard_catches_a_fingerprint_collision():
-    data = _collision_input()
+    data = collision_input()
     raw = PE.compress_block_device(data, verify=False, device="cpu")
     assert raw == JE.compress_block_device(data, verify=False)
     assert not native.verify_block(raw, data) and not JN.verify_block(raw, data)

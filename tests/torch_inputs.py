@@ -129,6 +129,15 @@ def wild_plan_fields(tile_rows: int, seed: int = 5) -> dict:
     )
 
 
+def collision_input() -> bytes:
+    """20,322 bytes of a word soup on which the all-device encoder meets a
+    real fingerprint collision: two unequal 1024-byte spans (both 512-byte
+    halves unequal) share one level-10 fingerprint, so a 9-byte match is
+    stretched to 1028 bytes."""
+    base = 458748 - 65536
+    return word_soup(1200000, seed=41)[base + 46379 : base + 66701]
+
+
 def block_inputs() -> dict:
     """Named single-block inputs of at most ~330 KB."""
     return {
